@@ -12,7 +12,11 @@ the last line:
   2. kernels: each CUDA kernel against its plain PyTorch version on the card
      at the main path's shapes ((16, n) for every tapped tensor size of
      ResNet-18@224, bf16 and f32), with CUDA-event times (median of 25
-     after warm-up) beside the least time the card could take;
+     after warm-up) beside the least time the card could take; then one
+     ``octav_many`` call over all 50 tapped tensors of a batch, as the main
+     path makes it, timed by CUDA events around the call and by the
+     kernels' own durations in a ``torch.profiler`` trace, with one line per
+     size class;
   3. the main path: ``python -m dipoorlet_torch``'s ``main`` on the card for
      ``-A mse``, ``-A hist`` and ``-A minmax`` with ``-D trt`` over 100
      synthetic samples of ResNet-18@224 (1000 classes, seed 0), with the
@@ -40,7 +44,7 @@ from collections import Counter
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+LANES_PER_SM = 128             # Hopper: 4 schedulers x 32 lanes issue one instruction a clock
 BATCH = 16
 BINS = 2048
 N_SAMPLES = 100
@@ -70,19 +74,30 @@ def median_ms(fn, runs=TIMED_RUNS, warmup=3):
     return statistics.median(times)
 
 
+def nvidia_smi(query):
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
 # -- phase 1 ------------------------------------------------------------------
 def environment():
+    """Prints the card and builds the kernels; returns the card's rate of
+    simple instructions (compare, add, count: one each, where an f32 peak
+    counts a fused multiply-add as two): SMs x 128 lanes x its top SM clock."""
     import torch
     from dipoorlet_torch.calib import build
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi("name,power.limit")
     print(smi, flush=True)
     nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
     build_s = build.build()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    ops_per_s = sms * LANES_PER_SM * clock_hz
     emit("environment", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         nvcc=nvcc, kernel_build_s=build_s)
-    return smi
+         nvcc=nvcc, kernel_build_s=build_s, sms=sms, max_sm_clock_hz=clock_hz,
+         ops_per_s=ops_per_s)
+    return ops_per_s
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -96,7 +111,7 @@ def activation_like(n, relu, dtype, gen):
     return x.to(dtype).contiguous()
 
 
-def check_kernels(tensor_sizes):
+def check_kernels(tensor_sizes, ops_per_s):
     """Each kernel against its plain version at every (size, dtype, data
     kind); times at the main path's default dtype (bf16)."""
     import torch
@@ -134,7 +149,7 @@ def check_kernels(tensor_sizes):
                             kernel_ms=median_ms(lambda: K.octav(x, dyn)),
                             plain_ms=median_ms(lambda: K.octav_reference(x, dyn), runs=20),
                             bytes_ms=1e3 * (x.numel() * elem + BATCH * 12) / HBM_BYTES_PER_S,
-                            ops_ms=1e3 * ops / F32_OPS_PER_S,
+                            ops_ms=1e3 * ops / ops_per_s,
                             library_ms=None,
                             max_abs_err=(got - want).abs().max().item(),
                             iterations=int(iters.max().item())))
@@ -161,7 +176,7 @@ def check_kernels(tensor_sizes):
                             x, valid, scales, 1, BINS, out), runs=20),
                         bytes_ms=1e3 * (read * elem + BATCH * 4 + 8 + 2 * BINS * 8)
                         / HBM_BYTES_PER_S,
-                        ops_ms=1e3 * 5 * read / F32_OPS_PER_S,
+                        ops_ms=1e3 * 5 * read / ops_per_s,
                         library_ms=median_ms(lambda: torch.histc(
                             absx, bins=BINS, min=0.0, max=float(amax))),
                         max_abs_err=(got - want).abs().max().item()))
@@ -172,22 +187,109 @@ def check_kernels(tensor_sizes):
          octav_min_max_exact=octav_worst["minmax_exact"], bin_count_bit_exact=True,
          sizes=sorted(counts), dtypes=["bfloat16", "float32"])
 
-    kernels = []
-    for name, route_src in (("octav", "dipoorlet_torch/calib/csrc/octav.cu"),
-                            ("bin_count", "dipoorlet_torch/calib/csrc/histogram.cu")):
-        rs = rows[name]
+    rs = rows["bin_count"]
 
-        def per_batch(key):
-            return sum(r[key] * r["count"] for r in rs)
-        bytes_ms, ops_ms = per_batch("bytes_ms"), per_batch("ops_ms")
-        kernels.append(dict(
-            name=name, route="cuda", source=route_src, replaces=REPLACES[name], launches=0,
-            max_abs_err=max(r["max_abs_err"] for r in rs),
-            ms=per_batch("kernel_ms"), plain_ms=per_batch("plain_ms"),
-            bound_ms=sum(max(r["bytes_ms"], r["ops_ms"]) * r["count"] for r in rs),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=per_batch("library_ms") if name == "bin_count" else None))
-    return kernels
+    def per_batch(key):
+        return sum(r[key] * r["count"] for r in rs)
+    bytes_ms, ops_ms = per_batch("bytes_ms"), per_batch("ops_ms")
+    bin_count = dict(
+        name="bin_count", route="cuda", source="dipoorlet_torch/calib/csrc/histogram.cu",
+        replaces=REPLACES["bin_count"], launches=0,
+        max_abs_err=max(r["max_abs_err"] for r in rs),
+        ms=per_batch("kernel_ms"), plain_ms=per_batch("plain_ms"),
+        bound_ms=sum(max(r["bytes_ms"], r["ops_ms"]) * r["count"] for r in rs),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=per_batch("library_ms"))
+    octav_per_tensor_ms = sum(r["kernel_ms"] * r["count"] for r in rows["octav"])
+    return bin_count, octav_per_tensor_ms
+
+
+def kernel_device_ms(fn, kernels_per_call, name, calls=TIMED_RUNS):
+    """The card's own time for the kernels one ``fn()`` launches, from a
+    ``torch.profiler`` trace over ``calls`` calls: the median per call of
+    the span from its first kernel's start to its last kernel's end (the
+    kernels of one call may overlap), and each kernel's median duration, in
+    launch order."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    trace = os.path.join(WORK, f"{name}_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    # the correlation id follows the order of the host's launch calls
+    kernels = sorted((e for e in events if e.get("cat") == "kernel" and name in e.get("name", "")),
+                     key=lambda e: e["args"]["correlation"])
+    if len(kernels) != calls * kernels_per_call:
+        raise AssertionError(f"the profiler saw {len(kernels)} {name} kernels in {calls} calls, "
+                             f"expected {kernels_per_call} per call")
+    spans = []
+    for c in range(calls):
+        call = kernels[c * kernels_per_call:(c + 1) * kernels_per_call]
+        spans.append((max(e["ts"] + e["dur"] for e in call) - min(e["ts"] for e in call)) / 1e3)
+    return statistics.median(spans), [statistics.median(e["dur"] / 1e3 for e in
+                                                        kernels[k::kernels_per_call])
+                                      for k in range(kernels_per_call)]
+
+
+def octav_batch(tensor_sizes, ops_per_s, per_tensor_ms):
+    """One ``octav_many`` call over all tapped tensors of a batch, as
+    ``run_octav`` makes it (bf16, (16, n) post-ReLU rows): agreement with the
+    plain version, the call's CUDA-event time (which also holds whatever
+    host time the card waits for, as the per-shape rows do) and the
+    kernels' device time per size class."""
+    import torch
+    from dipoorlet_torch.calib import kernels as K
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xs = [activation_like(n, True, torch.bfloat16, gen) for n in tensor_sizes]
+    plan = K.octav_plan([(n, torch.bfloat16) for n in tensor_sizes])
+    got = K.octav_many(xs, False)
+    want, iters = zip(*(K.octav_reference(x, False, return_iterations=True) for x in xs))
+    want = torch.stack(want)
+    torch.cuda.synchronize()
+    s_rel = ((got[..., 0] - want[..., 0]).abs()
+             / want[..., 0].abs().clamp(min=1e-30)).max().item()
+    exact = torch.equal(got[..., 1:], want[..., 1:])
+    if s_rel > 1e-4 or not exact:
+        raise AssertionError(f"octav_many over the batch disagrees: s rel err {s_rel}, "
+                             f"min/max exact {exact}")
+    call_ms = median_ms(lambda: K.octav_many(xs, False))
+    device_ms, class_ms = kernel_device_ms(lambda: K.octav_many(xs, False), len(plan),
+                                           "octav_kernel")
+    plain_ms = median_ms(lambda: torch.stack([K.octav_reference(x, False) for x in xs]),
+                         runs=3, warmup=1)
+    for launch, ms in zip(plan, class_ms):
+        emit("octav_class", cluster=launch.cluster, blocks_per_sm=launch.per_sm,
+             tensors=len(launch.entries), sizes=sorted({tensor_sizes[i] for i in launch.entries}),
+             blocks=len(launch.entries) * BATCH * launch.cluster,
+             smem_bytes_per_block=launch.smem_bytes, device_ms=ms)
+    # the bound: x read once and (s, min, max) written once; pass 1 takes 5
+    # operations per element, each iteration 3 (as many iterations as each
+    # row of this run needed)
+    elements = sum(x.numel() for x in xs)
+    bytes_ms = 1e3 * (elements * xs[0].element_size() + got.numel() * 4) / HBM_BYTES_PER_S
+    ops = sum(n * (5 * BATCH + 3 * int(it.sum())) for n, it in zip(tensor_sizes, iters))
+    ops_ms = 1e3 * ops / ops_per_s
+    emit("kernel_batch", kernel="octav", tensors=len(xs), dtype="bfloat16", launches=len(plan),
+         call_ms=call_ms, device_ms=device_ms, per_tensor_calls_ms=per_tensor_ms,
+         plain_ms=plain_ms, bytes_ms=bytes_ms, ops_ms=ops_ms, s_max_rel_err=s_rel,
+         min_max_exact=exact,
+         note="one octav_many call for the whole batch of 16; call_ms: CUDA-event median of "
+              f"{TIMED_RUNS}; device_ms: median span from the call's first kernel start to "
+              "its last kernel end in a torch.profiler trace (the classes run side by side, "
+              "so each class's device_ms is taken while sharing the card); "
+              "per_tensor_calls_ms: the per-shape octav rows summed over the 50 tensors")
+    return dict(name="octav", route="cuda", source="dipoorlet_torch/calib/csrc/octav.cu",
+                replaces=REPLACES["octav"], launches=0,
+                max_abs_err=(got - want).abs().max().item(), ms=call_ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None)
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -253,13 +355,18 @@ def run_cli(model_path, data_dir, algo, label, n_tensors, expect_launches):
     return got
 
 
-def main_path(model_path, data_dir, n_tensors):
+def main_path(model_path, data_dir, tensor_sizes):
     """-A mse, -A hist and -A minmax in a process that has run the CLI once
-    already; each kernel of a path is launched once per tapped tensor and
-    batch."""
-    per_pass = n_tensors * -(-N_SAMPLES // BATCH)
-    expect = {"mse": {"octav": per_pass, "bin_count": 0},
-              "hist": {"octav": 0, "bin_count": per_pass},
+    already.  Per batch, OCTAV launches once per class of the planner over
+    the tapped tensors (in bf16, the CLI's default statistics dtype), and
+    the histogram once per tapped tensor."""
+    import torch
+    from dipoorlet_torch.calib import kernels as K
+    batches = -(-N_SAMPLES // BATCH)
+    n_tensors = len(tensor_sizes)
+    octav = batches * len(K.octav_plan([(n, torch.bfloat16) for n in tensor_sizes]))
+    expect = {"mse": {"octav": octav, "bin_count": 0},
+              "hist": {"octav": 0, "bin_count": n_tensors * batches},
               "minmax": {"octav": 0, "bin_count": 0}}
     return {algo: run_cli(model_path, data_dir, algo, "warm", n_tensors, want)
             for algo, want in expect.items()}
@@ -319,7 +426,7 @@ def main():
     os.makedirs(WORK)
 
     t0 = time.time()
-    environment()
+    ops_per_s = environment()
     model_path, data_dir, export_s = prepare_model()
     # a user's run: the first CUDA work of the process (context, cuDNN and
     # cuBLAS set-up, the graph passes' first imports) happens inside it
@@ -329,8 +436,9 @@ def main():
          tapped_tensors=len(sizes), elements_per_sample=sum(sizes), samples=N_SAMPLES)
     if len(sizes) != N_TAPPED:
         raise AssertionError(f"ResNet-18 has {len(sizes)} tapped tensors, expected {N_TAPPED}")
-    kernels = check_kernels(sizes)
-    launches = main_path(model_path, data_dir, len(sizes))
+    bin_count, octav_per_tensor_ms = check_kernels(sizes, ops_per_s)
+    kernels = [octav_batch(sizes, ops_per_s, octav_per_tensor_ms), bin_count]
+    launches = main_path(model_path, data_dir, sizes)
     for k in kernels:
         k["launches"] = launches["mse" if k["name"] == "octav" else "hist"][k["name"]]
     card_vs_cpu(model_path, data_dir)

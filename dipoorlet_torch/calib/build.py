@@ -28,6 +28,12 @@ class KernelBuildError(RuntimeError):
     pass
 
 
+class OctavEntry(ctypes.Structure):
+    """One tensor of an OCTAV launch (``Entry`` in csrc/octav.cu)."""
+    _fields_ = [("x", ctypes.c_void_p), ("n", ctypes.c_int), ("chunk", ctypes.c_int),
+                ("index", ctypes.c_int)]
+
+
 def find_nvcc() -> str:
     """nvcc on PATH, then in $CUDA_HOME/bin, then in /usr/local/cuda/bin."""
     candidates = [shutil.which("nvcc")]
@@ -90,7 +96,8 @@ def library() -> ctypes.CDLL:
         build()
         lib = ctypes.CDLL(str(LIBRARY))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.octav_launch.argtypes = [p, i32, i64, i64, i32, p, p, i32]
+        lib.octav_launch.argtypes = [ctypes.POINTER(OctavEntry), i32, i32, i32, i32, i32, i32,
+                                     i32, p, p, i32]
         lib.octav_launch.restype = i32
         lib.bin_count_launch.argtypes = [p, i32, p, p, i32, i64, i64, i32, p, p, i32]
         lib.bin_count_launch.restype = i32

@@ -3,8 +3,10 @@
 Two CUDA C++ kernels for Hopper (calib/csrc/) replace the JAX package's two
 Pallas kernels (calib/kernels.py of the JAX package):
 
-  * ``octav(x, dynamic_sym)``: per sample row, the OCTAV MSE-optimal clip
-    with the row's min and max (csrc/octav.cu);
+  * ``octav_many(xs, dynamic_sym)``: per tensor and sample row, the OCTAV
+    MSE-optimal clip with the row's min and max, in one launch per size
+    class (``octav_plan``) for a whole list of tensors (csrc/octav.cu);
+    ``octav(x, dynamic_sym)`` is the same for one tensor;
   * ``bin_count(x, valid, scales, t, bins, out)``: the |x| binning fused
     into an exact histogram count (csrc/histogram.cu).
 
@@ -15,6 +17,10 @@ raises.  There is no fallback from the kernel to the plain version.  Each
 wrapper adds one to ``LAUNCHES`` where it launches its kernel, and nowhere
 else."""
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -60,20 +66,132 @@ def _raise_on(err: int, what: str):
 
 
 # -- OCTAV -------------------------------------------------------------------
+# The shared memory arithmetic of csrc/octav.cu, for Hopper (sm_90).
+SMEM_PER_BLOCK = 232_448      # the most shared memory one block may have
+SMEM_PER_SM = 233_472         # one SM's shared memory (228 KB)
+SMEM_RESERVED = 1024          # what the runtime reserves for each resident block
+OCTAV_STATIC_SMEM = 512       # kStaticSmem: the kernel's static shared memory, at most
+OCTAV_ALIGN = 16              # kAlign: slack that keeps a block's copy 16-byte aligned
+OCTAV_CLUSTERS = (1, 2, 4, 8)  # portable thread-block cluster sizes
+OCTAV_MAX_ENTRIES = 64        # kMaxEntries: tensors in one launch's table
+_SLICE_STEP = 8               # a block's slice starts on a multiple of 8 elements
+_MAX_N = 2 ** 31 - _SLICE_STEP  # the kernel counts elements in 32 bits
+_ELEM = {torch.float32: 4, torch.bfloat16: 2}
+
+
+@dataclass(frozen=True)
+class OctavLaunch:
+    """One launch of the OCTAV kernel: the tensors (``entries``, indices into
+    the caller's list) of one dtype whose rows take ``cluster`` blocks each,
+    every block keeping up to ``held`` elements of its slice (``chunks[j]``
+    elements of entry j's row) in ``smem_bytes`` of shared memory; one SM
+    holds ``per_sm`` such blocks."""
+    dtype: torch.dtype
+    cluster: int
+    per_sm: int
+    held: int
+    smem_bytes: int
+    entries: Tuple[int, ...]
+    chunks: Tuple[int, ...]
+
+
+def _octav_capacity(elem: int) -> int:
+    """Elements of a slice one block can keep in shared memory."""
+    room = SMEM_PER_BLOCK - OCTAV_STATIC_SMEM - OCTAV_ALIGN
+    return room // elem // _SLICE_STEP * _SLICE_STEP
+
+
+def octav_chunk(n: int, cluster: int) -> int:
+    """Elements of a row that each block of a ``cluster`` takes."""
+    per_block = -(-n // cluster)
+    return -(-per_block // _SLICE_STEP) * _SLICE_STEP
+
+
+def octav_plan(sizes: Sequence[Tuple[int, torch.dtype]]) -> Tuple[OctavLaunch, ...]:
+    """The launches ``octav_many`` makes for tensors of these (n, dtype).
+
+    A row goes to the smallest cluster whose blocks each hold their slice;
+    a row too large for 8 blocks keeps what fits and re-reads the rest.  The
+    rows of one dtype and cluster size form one class, split in two where
+    two blocks fit on one SM, so that small rows do not take a whole SM's
+    shared memory.  A class makes one launch per ``OCTAV_MAX_ENTRIES``
+    tensors, with the shared memory its largest slice needs.  A statistics
+    pass asks for the same sizes every batch, so the plans are cached."""
+    return _octav_plan(tuple(sizes))
+
+
+@functools.lru_cache(maxsize=32)
+def _octav_plan(sizes: Tuple[Tuple[int, torch.dtype], ...]) -> Tuple[OctavLaunch, ...]:
+    classes: Dict[Tuple[torch.dtype, int, int], list] = {}
+    for i, (n, dtype) in enumerate(sizes):
+        elem = _ELEM[dtype]
+        capacity = _octav_capacity(elem)
+        cluster = next((c for c in OCTAV_CLUSTERS if octav_chunk(n, c) <= capacity),
+                       OCTAV_CLUSTERS[-1])
+        chunk = octav_chunk(n, cluster)
+        held = min(chunk, capacity)
+        block_smem = held * elem + OCTAV_ALIGN + OCTAV_STATIC_SMEM + SMEM_RESERVED
+        per_sm = 2 if 2 * block_smem <= SMEM_PER_SM else 1
+        classes.setdefault((dtype, cluster, per_sm), []).append((i, chunk, held))
+    launches = []
+    for (dtype, cluster, per_sm), members in sorted(
+            classes.items(), key=lambda kv: (_DTYPE_CODE[kv[0][0]], -kv[0][1], kv[0][2])):
+        for j in range(0, len(members), OCTAV_MAX_ENTRIES):
+            part = members[j:j + OCTAV_MAX_ENTRIES]
+            held = max(h for _, _, h in part)
+            launches.append(OctavLaunch(dtype, cluster, per_sm, held,
+                                        held * _ELEM[dtype] + OCTAV_ALIGN,
+                                        tuple(i for i, _, _ in part),
+                                        tuple(c for _, c, _ in part)))
+    return tuple(launches)
+
+
+def octav_many(xs: Sequence[torch.Tensor], dynamic_sym: bool) -> torch.Tensor:
+    """A list of T (B, n_t) f32/bf16 tensors -> (T, B, 3) f32 of (optimal s,
+    min, max) per tensor and row, in ``len(octav_plan(...))`` launches."""
+    xs = list(xs)
+    if not xs:
+        raise ValueError("octav_many: no tensors")
+    for x in xs:
+        _check_rows(x, "octav_many")
+        _same_device("octav_many", xs[0], tensor=x)
+        if x.shape[0] != xs[0].shape[0] or x.shape[0] < 1:
+            raise ValueError(f"octav_many: every tensor needs the same B >= 1 rows, got "
+                             f"{[tuple(t.shape) for t in xs]}")
+        if x.shape[1] > _MAX_N:
+            raise ValueError(f"octav_many: at most {_MAX_N} elements per row, got {x.shape[1]}")
+    if xs[0].device.type == "cpu":
+        return torch.stack([octav_reference(x, dynamic_sym) for x in xs])
+    from .build import OctavEntry, library
+    lib = library()
+    device, batch = xs[0].device, xs[0].shape[0]
+    out = torch.empty((len(xs), batch, 3), dtype=torch.float32, device=device)
+    # The classes run side by side on streams forked from the caller's and
+    # joined back into it, so one class's last wave of blocks shares the
+    # card with the next class instead of leaving SMs idle.
+    caller = torch.cuda.current_stream(device)
+    fork = torch.cuda.Event()
+    fork.record(caller)
+    for launch in octav_plan([(x.shape[1], x.dtype) for x in xs]):
+        side = torch.cuda.Stream(device)
+        side.wait_event(fork)
+        table = (OctavEntry * len(launch.entries))(
+            *(OctavEntry(xs[i].data_ptr(), xs[i].shape[1], chunk, i)
+              for i, chunk in zip(launch.entries, launch.chunks)))
+        _raise_on(lib.octav_launch(table, len(launch.entries), _DTYPE_CODE[launch.dtype],
+                                   launch.cluster, batch, launch.held, launch.smem_bytes,
+                                   int(bool(dynamic_sym)), out.data_ptr(), side.cuda_stream,
+                                   device.index), "octav")
+        LAUNCHES["octav"] += 1
+        join = torch.cuda.Event()
+        join.record(side)
+        caller.wait_event(join)
+    return out
+
+
 def octav(x: torch.Tensor, dynamic_sym: bool) -> torch.Tensor:
     """(B, n) f32/bf16 rows -> (B, 3) f32 of (optimal s, min, max) per row."""
-    _check_rows(x, "octav")
-    _same_device("octav", x)
-    if x.device.type == "cpu":
-        return octav_reference(x, dynamic_sym)
-    from .build import library
-    lib = library()
-    out = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
-    _raise_on(lib.octav_launch(x.data_ptr(), _DTYPE_CODE[x.dtype], x.shape[0], x.shape[1],
-                               int(bool(dynamic_sym)), out.data_ptr(), _stream(x),
-                               x.device.index), "octav")
-    LAUNCHES["octav"] += 1
-    return out
+    return octav_many([x], dynamic_sym)[0]
 
 
 def octav_reference(x: torch.Tensor, dynamic_sym: bool, return_iterations: bool = False):

@@ -8,8 +8,8 @@ statistics run on them outside the vmap:
   * minmax -> (min, max) per tensor, reduced on the device;
   * hist   -> a (bins,) int64 |x| histogram per tensor, counted by the
               ``bin_count`` kernel straight from the activations;
-  * octav  -> the OCTAV fixed point per sample and tensor, by the ``octav``
-              kernel.
+  * octav  -> the OCTAV fixed point per sample and tensor, by one
+              ``octav_many`` call per batch over all the tapped tensors.
 
 Cross-batch combination stays on the device (min/max/sum carries); a pass
 syncs with the host once, when it returns.  Padded samples of a partial
@@ -25,7 +25,7 @@ import torch
 
 from ..device import select_device
 from ..runtime.executor import Executor
-from .kernels import bin_count, octav
+from .kernels import bin_count, octav_many
 
 _BIG = float(np.finfo(np.float32).max)
 
@@ -214,7 +214,7 @@ class StatsRunner:
         count = 0
         for inputs, valid, n_valid in self._batches(dataset, batch_size, start, end):
             taps = self._taps(params, inputs)
-            res = torch.stack([octav(taps[n], dynamic_sym) for n in self.tensor_names])
+            res = octav_many([taps[n] for n in self.tensor_names], dynamic_sym)
             keep = valid > 0
             s_sum = s_sum + (res[..., 0] * valid).sum(1)
             lo = torch.minimum(lo, torch.where(keep, res[..., 1], _BIG).amin(1))

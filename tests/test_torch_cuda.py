@@ -10,6 +10,7 @@ Tolerances: the histogram bit-exact; OCTAV's s to rtol 1e-4 with min/max
 exact (f32 sums in another order); minmax clip values on the card against
 the CPU to rtol 1e-4 (cuDNN and CPU convolutions round differently)."""
 import json
+import math
 import os
 
 import numpy as np
@@ -49,7 +50,57 @@ def test_kernels_match_plain_versions(cuda_device, dtype, n):
     a = K.bin_count(x, valid, scales, 1, 2048, zeros.clone())
     b = K.bin_count_reference(x, valid, scales, 1, 2048, zeros.clone())
     assert torch.equal(a, b) and int(a.sum()) == 15 * n
-    assert K.LAUNCHES == {"octav": 2, "bin_count": 1}
+    assert K.LAUNCHES == {"octav": 2 * len(K.octav_plan([(n, dtype)])), "bin_count": 1}
+
+
+# (n, dtype) that reach every class of the planner and the re-read path: an
+# f32 row of 802,816 elements (more than 8 blocks hold), n that is not a
+# multiple of the cluster's slices, n = 1 and n = 3
+OCTAV_RAGGED = [(802816, torch.float32), (802817, torch.float32), (802816, torch.bfloat16),
+                (200704, torch.float32), (200704, torch.bfloat16), (150531, torch.bfloat16),
+                (100352, torch.float32), (100352, torch.bfloat16), (50176, torch.float32),
+                (25088, torch.bfloat16), (4099, torch.float32), (1000, torch.bfloat16),
+                (3, torch.float32), (1, torch.bfloat16), (1, torch.float32)]
+
+
+@pytest.mark.parametrize("dynamic_sym", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+def test_octav_many_matches_plain_version_in_every_class(cuda_device, relu, dynamic_sym):
+    plan = K.octav_plan(OCTAV_RAGGED)
+    assert {launch.cluster for launch in plan} == {1, 2, 4, 8}
+    assert {launch.per_sm for launch in plan} == {1, 2}
+    assert any(max(launch.chunks) > launch.held for launch in plan)  # a row re-reads
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    xs = []
+    for n, dtype in OCTAV_RAGGED:
+        x = torch.randn(16, n, generator=gen, device=cuda_device) * 3.0
+        x = torch.relu(x) if relu else x
+        x[3] = 0.0  # an all-zero row
+        xs.append(x.to(dtype))
+    K.reset_launches()
+    got = K.octav_many(xs, dynamic_sym)
+    assert K.LAUNCHES["octav"] == len(plan)
+    for x, g in zip(xs, got):
+        want = K.octav_reference(x, dynamic_sym)
+        torch.testing.assert_close(g[:, 0], want[:, 0], rtol=1e-4, atol=0)
+        assert torch.equal(g[:, 1:], want[:, 1:])
+        assert g[3].tolist() == [0.0, 0.0, 0.0]
+
+
+def test_octav_many_runs_in_the_order_of_the_callers_stream(cuda_device):
+    """The classes run on side streams: they start after the work already
+    queued on the caller's stream and finish before the work queued next."""
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        x = torch.randn(16, 802816, device=cuda_device).to(torch.bfloat16)
+        xs = [x, x[:, :200704].contiguous(), x[:, :1000].contiguous()]
+        assert len(K.octav_plan([(t.shape[1], t.dtype) for t in xs])) == 3
+        got = K.octav_many(xs, True).clone()
+    stream.synchronize()
+    for t, g in zip(xs, got):
+        want = K.octav_reference(t, True)
+        torch.testing.assert_close(g[:, 0], want[:, 0], rtol=1e-4, atol=0)
+        assert torch.equal(g[:, 1:], want[:, 1:])
 
 
 def test_kernels_raise_instead_of_falling_back(cuda_device):
@@ -111,16 +162,22 @@ def test_statistics_on_the_card_match_the_cpu(workspace):
     for name in o_c:
         np.testing.assert_allclose(o_g[name]["s_sum"], o_c[name]["s_sum"], rtol=1e-3)
     batches = 3  # 10 samples in batches of 4
-    assert K.LAUNCHES == {"octav": 4 * batches, "bin_count": 4 * batches}
+    octav_per_batch = len(K.octav_plan([(math.prod(ex.graph.get_tensor_shape(n)), torch.float32)
+                                        for n in card.tensor_names]))
+    assert K.LAUNCHES == {"octav": octav_per_batch * batches, "bin_count": 4 * batches}
 
 
 def test_cli_runs_on_the_card_by_default(workspace):
     from dipoorlet_torch.__main__ import main
+    from dipoorlet_torch.graph import GraphIR
     K.reset_launches()
     out = workspace / "out"
     main(["-M", str(workspace / "m.onnx"), "-I", str(workspace / "data"), "-O", str(out),
           "-N", "10", "--batch_size", "4", "-A", "mse", "-D", "trt"])
-    assert K.LAUNCHES["octav"] == 4 * 3
+    graph = GraphIR.load(str(workspace / "m.onnx"))
+    sizes = [(math.prod(graph.get_tensor_shape(n)), torch.bfloat16)  # bf16 statistics forwards
+             for n in ("x", "c1", "r1", "y")]
+    assert K.LAUNCHES["octav"] == 3 * len(K.octav_plan(sizes))
     blob = json.load(open(os.path.join(out, "trt_clip_val.json")))["blob_range"]
     assert set(blob) == {"x", "c1", "r1", "y"}
     cos = json.load(open(os.path.join(out, "model_res.json.rank0")))["y"][0]

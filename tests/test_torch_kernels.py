@@ -78,6 +78,102 @@ def test_octav_reference_reports_iterations_and_freezes_converged_rows():
         np.testing.assert_array_equal(out[r], K.octav_reference(x[r:r + 1], True)[0])
 
 
+@pytest.mark.parametrize("dynamic_sym", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_octav_many_matches_per_tensor_reference_and_the_jax_package(dtype, dynamic_sym):
+    """A ragged list in one call: on the CPU each tensor's rows equal
+    ``octav_reference`` on that tensor bit for bit, and the JAX package's
+    Pallas kernel and XLA fallback on the same (f32) values within rtol 1e-4."""
+    from dipoorlet_tpu.calib.kernels import octav_pallas
+    from dipoorlet_tpu.calib.stats import make_octav_transform
+    rng = np.random.RandomState(11 + dynamic_sym)
+    xs = [torch.from_numpy(_rows(rng, 2, n, relu=bool(i % 2))).to(dtype)
+          for i, n in enumerate((1, 3, 512, 1000, 4099))]
+    got = K.octav_many(xs, dynamic_sym)
+    assert got.shape == (len(xs), 2, 3) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got, torch.stack([K.octav_reference(x, dynamic_sym)
+                                                    for x in xs]))
+    xla = make_octav_transform(dynamic_sym, allow_pallas=False)
+    for x, g in zip(xs, got.numpy()):
+        for r, row in enumerate(x.float().numpy()):
+            with pltpu.force_tpu_interpret_mode():
+                pallas = [float(v) for v in octav_pallas(jnp.asarray(row), dynamic_sym)]
+            fallback = [float(v) for v in xla("t", jnp.asarray(row))]
+            for ref in (pallas, fallback):
+                np.testing.assert_allclose(g[r, 0], ref[0], rtol=1e-4)
+                assert g[r, 1] == ref[1] and g[r, 2] == ref[2]
+
+
+# ResNet-18@224's 50 tapped tensors (elements per sample, count), as
+# chip_smoke.py's model phase finds them
+RESNET18_224 = {802816: 2, 200704: 11, 150528: 1, 100352: 11, 50176: 11, 25088: 11, 1000: 1,
+                512: 2}
+
+
+def _resnet18_sizes(dtype):
+    return [(n, dtype) for n, count in RESNET18_224.items() for _ in range(count)]
+
+
+def _block_split(n, chunk, cluster, held):
+    """(elements kept in shared memory, elements re-read each iteration) for
+    each block of a cluster, as csrc/octav.cu splits a row."""
+    split = []
+    for rank in range(cluster):
+        lo = min(rank * chunk, n)
+        length = min(chunk, n - lo)
+        split.append((min(length, held), length - min(length, held)))
+    return split
+
+
+def _random_sizes():
+    rng = np.random.RandomState(5)
+    ns = np.exp(rng.uniform(0, np.log(5e6), 150)).astype(int) + 1
+    return [(int(n), (torch.float32, torch.bfloat16)[rng.randint(2)]) for n in ns]
+
+
+@pytest.mark.parametrize("sizes", [_resnet18_sizes(torch.bfloat16),
+                                   _resnet18_sizes(torch.float32), _random_sizes()],
+                         ids=["resnet18-bf16", "resnet18-f32", "random"])
+def test_octav_plan_invariants(sizes):
+    plan = K.octav_plan(sizes)
+    placed = sorted(i for launch in plan for i in launch.entries)
+    assert placed == list(range(len(sizes)))  # every entry in exactly one launch
+    for launch in plan:
+        assert launch.cluster in K.OCTAV_CLUSTERS and launch.cluster <= 8
+        assert 1 <= len(launch.entries) <= K.OCTAV_MAX_ENTRIES
+        assert launch.smem_bytes + K.OCTAV_STATIC_SMEM <= 232_448
+        block = launch.smem_bytes + K.OCTAV_STATIC_SMEM + K.SMEM_RESERVED
+        assert launch.per_sm * block <= K.SMEM_PER_SM
+        elem = torch.tensor([], dtype=launch.dtype).element_size()
+        assert launch.held * elem + K.OCTAV_ALIGN <= launch.smem_bytes
+        for i, chunk in zip(launch.entries, launch.chunks):
+            n, dtype = sizes[i]
+            assert dtype == launch.dtype
+            split = _block_split(n, chunk, launch.cluster, launch.held)
+            assert sum(on + reread for on, reread in split) == n
+            assert all(on <= launch.held for on, _ in split)
+            # a row re-reads only when 8 blocks cannot hold it
+            assert not any(r for _, r in split) or launch.cluster == 8
+            if launch.cluster > 1:  # the smallest cluster that holds the row
+                half = K.octav_chunk(n, launch.cluster // 2)
+                assert half * elem + K.OCTAV_ALIGN + K.OCTAV_STATIC_SMEM > 232_448
+
+
+def test_octav_plan_classes_at_resnet18():
+    """bf16: 802,816 elements on clusters of 8, 200,704 and 150,528 on 2,
+    100,352 on one block alone on its SM, the 25 smaller rows two blocks to
+    an SM; f32 re-reads only the 802,816-element rows."""
+    bf16 = [(launch.cluster, launch.per_sm, len(launch.entries))
+            for launch in K.octav_plan(_resnet18_sizes(torch.bfloat16))]
+    assert bf16 == [(8, 1, 2), (2, 1, 12), (1, 1, 11), (1, 2, 25)]
+    sizes = _resnet18_sizes(torch.float32)
+    reread = {sizes[i][0] for launch in K.octav_plan(sizes)
+              for i, chunk in zip(launch.entries, launch.chunks)
+              if any(r for _, r in _block_split(sizes[i][0], chunk, launch.cluster,
+                                                       launch.held))}
+    assert reread == {802816}
+
+
 def _binned(x, scale, bins):
     """The JAX package's binning (stats.py:435-442) in numpy f32."""
     v = np.abs(x.astype(np.float32)) * np.float32(scale)
@@ -140,6 +236,8 @@ def test_wrappers_refuse_unsupported_dtypes(dtype):
     with pytest.raises(TypeError):
         K.octav(x, False)
     with pytest.raises(TypeError):
+        K.octav_many([torch.ones(2, 8), x], False)
+    with pytest.raises(TypeError):
         K.bin_count(x, torch.ones(2), torch.ones(1), 0, 4, torch.zeros(4, dtype=torch.int64))
 
 
@@ -149,6 +247,12 @@ def test_wrappers_refuse_bad_shapes_and_layouts():
         K.octav(x.t(), False)  # not contiguous
     with pytest.raises(ValueError):
         K.octav(torch.ones(8), False)  # not (B, n)
+    with pytest.raises(ValueError):
+        K.octav(torch.ones(0, 8), False)  # no rows
+    with pytest.raises(ValueError):
+        K.octav_many([], False)
+    with pytest.raises(ValueError):
+        K.octav_many([x, torch.ones(3, 8)], False)  # B differs
     out = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError):
         K.bin_count(x, torch.ones(3), torch.ones(1), 0, 4, out)  # valid length
@@ -162,5 +266,6 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     K.reset_launches()
     x = torch.rand(2, 50)
     K.octav(x, False)
+    K.octav_many([x, torch.rand(2, 7).to(torch.bfloat16)], True)
     K.bin_count(x, torch.ones(2), torch.ones(1), 0, 8, torch.zeros(8, dtype=torch.int64))
     assert K.LAUNCHES == {"octav": 0, "bin_count": 0}

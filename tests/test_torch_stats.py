@@ -122,6 +122,24 @@ def test_tap_chunks_give_the_same_statistics(setup):
         np.testing.assert_array_equal(ha[name], hb[name])
 
 
+@pytest.mark.parametrize("tap_chunk,calls,most", [(None, 3, 50), (7, 8 * 3, 7)])
+def test_run_octav_makes_one_octav_many_call_per_batch(setup, monkeypatch, tap_chunk, calls,
+                                                       most):
+    """One call per batch over all the runner's tensors: 3 batches of the
+    50 tensors, or 3 for each of the 8 tap chunks (at most 7 tensors)."""
+    from dipoorlet_torch.calib import stats
+    octav_many, seen = stats.octav_many, []
+
+    def counting(xs, dynamic_sym):
+        seen.append(len(xs))
+        return octav_many(xs, dynamic_sym)
+    monkeypatch.setattr(stats, "octav_many", counting)
+    runner = StatsRunner(setup["ex"], device="cpu", tap_chunk=tap_chunk)
+    got = runner.run_octav(setup["params"], setup["ds"], True, batch_size=BATCH)
+    assert len(seen) == calls and max(seen) == most and sum(seen) == 50 * 3
+    assert len(got) == 50
+
+
 def test_bf16_statistics_stay_close_to_f32(setup):
     """bf16 forwards round activations to 8 mantissa bits; the ranges move by
     well under 2% (the JAX package documents <1% on ResNet-18)."""
