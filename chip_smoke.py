@@ -13,10 +13,11 @@ the last line:
      at the main path's shapes ((16, n) for every tapped tensor size of
      ResNet-18@224, bf16 and f32), with CUDA-event times (median of 25
      after warm-up) beside the least time the card could take; then one
-     ``octav_many`` call over all 50 tapped tensors of a batch, as the main
-     path makes it, timed by CUDA events around the call and by the
-     kernels' own durations in a ``torch.profiler`` trace, with one line per
-     size class;
+     ``octav_many`` call and one ``bin_count_many`` call over all 50 tapped
+     tensors of a batch, as the main path makes them, timed by CUDA events
+     around the call and by the kernels' own durations in a
+     ``torch.profiler`` trace, with one line per OCTAV size class and one
+     comparing the histogram designs the main path does not take;
   3. the main path: ``python -m dipoorlet_torch``'s ``main`` on the card for
      ``-A mse``, ``-A hist`` and ``-A minmax`` with ``-D trt`` over 100
      synthetic samples of ResNet-18@224 (1000 classes, seed 0), with the
@@ -24,7 +25,10 @@ the last line:
      first, before any other CUDA work of the process, for a user's cold
      per-phase times;
   4. card against CPU: the calibration statistics of 16 samples in f32 on
-     the card (kernels) and on the CPU (plain versions).
+     the card (kernels) and on the CPU (plain versions);
+  5. one warm ``-A hist`` statistics pass under ``torch.profiler``: the
+     share of its wall span the kernels keep the card busy, and the 5
+     kernels with the most total time.
 The last line is {"ok": true, "device": {...}}.  Scratch files go to
 build/chip_smoke/ in the checkout.
 """
@@ -113,7 +117,9 @@ def activation_like(n, relu, dtype, gen):
 
 def check_kernels(tensor_sizes, ops_per_s):
     """Each kernel against its plain version at every (size, dtype, data
-    kind); times at the main path's default dtype (bf16)."""
+    kind); times at the main path's default dtype (bf16), one tensor per
+    call.  Returns each kernel's per-shape times summed over a batch's
+    tensors."""
     import torch
     from dipoorlet_torch.calib import kernels as K
 
@@ -187,47 +193,58 @@ def check_kernels(tensor_sizes, ops_per_s):
          octav_min_max_exact=octav_worst["minmax_exact"], bin_count_bit_exact=True,
          sizes=sorted(counts), dtypes=["bfloat16", "float32"])
 
-    rs = rows["bin_count"]
-
-    def per_batch(key):
-        return sum(r[key] * r["count"] for r in rs)
-    bytes_ms, ops_ms = per_batch("bytes_ms"), per_batch("ops_ms")
-    bin_count = dict(
-        name="bin_count", route="cuda", source="dipoorlet_torch/calib/csrc/histogram.cu",
-        replaces=REPLACES["bin_count"], launches=0,
-        max_abs_err=max(r["max_abs_err"] for r in rs),
-        ms=per_batch("kernel_ms"), plain_ms=per_batch("plain_ms"),
-        bound_ms=sum(max(r["bytes_ms"], r["ops_ms"]) * r["count"] for r in rs),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=per_batch("library_ms"))
-    octav_per_tensor_ms = sum(r["kernel_ms"] * r["count"] for r in rows["octav"])
-    return bin_count, octav_per_tensor_ms
+    return {k: sum(r["kernel_ms"] * r["count"] for r in rs) for k, rs in rows.items()}
 
 
-def kernel_device_ms(fn, kernels_per_call, name, calls=TIMED_RUNS):
+def traced_launches(events, lo, hi):
+    """Correlation ids of the launches the host made in [lo, hi] (µs)."""
+    return {e["args"]["correlation"] for e in events
+            if e.get("cat") == "cuda_runtime" and lo <= e["ts"] <= hi
+            and "correlation" in e.get("args", {})}
+
+
+def kernel_device_ms(fn, kernels_per_call, name, calls=TIMED_RUNS, attempts=3):
     """The card's own time for the kernels one ``fn()`` launches, from a
     ``torch.profiler`` trace over ``calls`` calls: the median per call of
     the span from its first kernel's start to its last kernel's end (the
     kernels of one call may overlap), and each kernel's median duration, in
-    launch order."""
+    launch order.  The timed calls follow as many untimed ones in the same
+    trace, and only the kernels the timed calls launched are read: the
+    tracer has been seen to miss launches of a trace's first
+    milliseconds.  A trace that still lacks one of the timed kernels is
+    taken again, at most ``attempts`` times in all."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    trace = os.path.join(WORK, f"{name}_trace.json")
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = json.load(f)["traceEvents"]
-    # the correlation id follows the order of the host's launch calls
-    kernels = sorted((e for e in events if e.get("cat") == "kernel" and name in e.get("name", "")),
-                     key=lambda e: e["args"]["correlation"])
-    if len(kernels) != calls * kernels_per_call:
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            with record_function("timed_calls"):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        trace = os.path.join(WORK, f"{name}_trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        (timed,) = [e for e in events if e.get("name") == "timed_calls"
+                    and e.get("cat") == "user_annotation"]
+        launched = traced_launches(events, timed["ts"], timed["ts"] + timed["dur"])
+        # the correlation id follows the order of the host's launch calls
+        kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                          and name in e.get("name", "")
+                          and e["args"]["correlation"] in launched),
+                         key=lambda e: e["args"]["correlation"])
+        if len(kernels) == calls * kernels_per_call:
+            break
+        emit("profiler_retry", kernel=name, attempt=attempt, kernels_seen=len(kernels),
+             expected=calls * kernels_per_call)
+    else:
         raise AssertionError(f"the profiler saw {len(kernels)} {name} kernels in {calls} calls, "
-                             f"expected {kernels_per_call} per call")
+                             f"expected {kernels_per_call} per call, in {attempts} traces")
     spans = []
     for c in range(calls):
         call = kernels[c * kernels_per_call:(c + 1) * kernels_per_call]
@@ -290,6 +307,121 @@ def octav_batch(tensor_sizes, ops_per_s, per_tensor_ms):
                 max_abs_err=(got - want).abs().max().item(), ms=call_ms, device_ms=device_ms,
                 plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None)
+
+
+def hist_scales(xs, valid):
+    """The binning scales of the fused minmax->hist pass: bins / amax over
+    each tensor's valid rows."""
+    import torch
+    amax = torch.stack([x[valid > 0].float().abs().amax() for x in xs])
+    return torch.where(amax > 0, BINS / amax, 0.0).float()
+
+
+def flushes(launch, per_block):
+    """(block, entry) pairs whose ranges meet for blocks of per_block elements."""
+    sizes = [(launch.firsts[j + 1] if j + 1 < len(launch.firsts) else launch.total) - f
+             for j, f in enumerate(launch.firsts)]
+    return sum((f + size - 1) // per_block - f // per_block + 1
+               for f, size in zip(launch.firsts, sizes))
+
+
+def hist_batch(tensor_sizes, ops_per_s, per_tensor_ms):
+    """One ``bin_count_many`` call over all tapped tensors of a batch, as
+    ``_hist_pass`` makes it (bf16, (16, n) post-ReLU rows, one sample
+    masked): bit-exact agreement with the plain version per tensor in bf16
+    and f32, post-ReLU and signed; the call's CUDA-event time, the kernel's
+    device time from a profiler trace, the plain version's, and
+    ``torch.histc`` summed over the tensors.  Then the designs the main path
+    does not take, each checked bit for bit and timed on the same inputs:
+    the other two ways to tally a bucket, and a grid of 64K-element blocks
+    instead of one sized to the card."""
+    import dataclasses
+    import torch
+    from dipoorlet_torch.calib import kernels as K
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    valid = torch.ones(BATCH, device="cuda")
+    valid[BATCH // 2] = 0.0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t = len(tensor_sizes)
+    data, worst = {}, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for relu in (True, False):
+            xs = [activation_like(n, relu, dtype, gen) for n in tensor_sizes]
+            scales = hist_scales(xs, valid)
+            got = torch.zeros((t, BINS), dtype=torch.int64, device="cuda")
+            K.bin_count_many(xs, valid, scales, BINS, got)
+            want = torch.stack([K.bin_count_reference(x, valid, scales, i, BINS,
+                                                      torch.zeros_like(got[0]))
+                                for i, x in enumerate(xs)])
+            err = (got - want).abs().max().item()
+            worst = max(worst, err)
+            if err != 0:
+                raise AssertionError(f"bin_count_many over the batch disagrees ({dtype}, "
+                                     f"relu={relu}): {err} max diff")
+            if dtype == torch.bfloat16:
+                data[relu] = (xs, scales, want)
+    xs, scales, want = data[True]
+    plan = K.bin_count_plan([(n, torch.bfloat16) for n in tensor_sizes], BATCH, BINS, sms)
+    out = torch.zeros((t, BINS), dtype=torch.int64, device="cuda")
+    call_ms = median_ms(lambda: K.bin_count_many(xs, valid, scales, BINS, out))
+    device_ms, _ = kernel_device_ms(lambda: K.bin_count_many(xs, valid, scales, BINS, out),
+                                    len(plan), "bin_count_kernel")
+    plain_ms = median_ms(lambda: [K.bin_count_reference(x, valid, scales, i, BINS, out[i])
+                                  for i, x in enumerate(xs)], runs=5, warmup=1)
+    absx = [x[valid > 0].float().abs() for x in xs]
+    amax = [float(a.amax()) for a in absx]
+    library_ms = median_ms(lambda: [torch.histc(a, bins=BINS, min=0.0, max=m)
+                                    for a, m in zip(absx, amax)])
+    # the bound: the valid rows of x read once, valid and scales read once,
+    # out read and written once; 5 operations per element read (|x| * scale,
+    # convert, clamp twice, count)
+    read = int((valid > 0).sum().item()) * sum(tensor_sizes)
+    bytes_ms = 1e3 * (read * xs[0].element_size() + valid.numel() * 4 + scales.numel() * 4
+                      + 2 * out.numel() * 8) / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 5 * read / ops_per_s
+    (launch,) = plan
+    emit("kernel_batch", kernel="bin_count", tensors=t, dtype="bfloat16", launches=len(plan),
+         grid=launch.grid, per_block=launch.per_block, flushes=launch.flushes,
+         global_atomics_at_most=launch.flushes * BINS, call_ms=call_ms, device_ms=device_ms,
+         per_tensor_calls_ms=per_tensor_ms, plain_ms=plain_ms, library_ms=library_ms,
+         bytes_ms=bytes_ms, ops_ms=ops_ms, max_abs_err=worst,
+         note="one bin_count_many call for the whole batch of 16, one sample masked; call_ms: "
+              f"CUDA-event median of {TIMED_RUNS}; device_ms: median kernel span in a "
+              "torch.profiler trace; library_ms: torch.histc over each tensor's valid |x|, "
+              "summed; per_tensor_calls_ms: the per-shape bin_count rows summed over the 50 "
+              "tensors")
+
+    designs = []
+    rows = [out.data_ptr() + i * BINS * 8 for i in range(t)]
+    big = 1 << 16
+    variants = [(tally, relu, K.bin_count_plan([(n, torch.bfloat16) for n in tensor_sizes],
+                                               BATCH, BINS, sms, tally)[0])
+                for relu in (True, False) for tally in K.BIN_COUNT_TALLIES]
+    variants.append((K.BIN_COUNT_TALLY, True, dataclasses.replace(
+        launch, per_block=big, grid=-(-launch.total // big), flushes=flushes(launch, big))))
+    for tally, relu, v in variants:
+        vx, vscales, vwant = data[relu]
+
+        def run():
+            K.launch_bin_count(v, vx, list(range(t)), rows, valid, vscales, BINS)
+        out.zero_()
+        run()
+        err = (out - vwant).abs().max().item()
+        worst = max(worst, err)
+        if err != 0:
+            raise AssertionError(f"bin_count, tally {tally}, grid {v.grid}: {err} max diff")
+        ms, _ = kernel_device_ms(run, 1, "bin_count_kernel")
+        designs.append(dict(tally=tally, data="post-ReLU" if relu else "signed", grid=v.grid,
+                            per_block=v.per_block, smem_bytes=v.smem_bytes, flushes=v.flushes,
+                            device_ms=ms, main_path=v == launch))
+    emit("hist_design", designs=designs,
+         note="bf16, the 50 tensors of a batch of 16, one sample masked; device_ms as in "
+              "kernel_batch; main_path marks the design bin_count_many takes")
+    return dict(name="bin_count", route="cuda", source="dipoorlet_torch/calib/csrc/histogram.cu",
+                replaces=REPLACES["bin_count"], launches=0, max_abs_err=worst, ms=call_ms,
+                device_ms=device_ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=library_ms)
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -357,16 +489,18 @@ def run_cli(model_path, data_dir, algo, label, n_tensors, expect_launches):
 
 def main_path(model_path, data_dir, tensor_sizes):
     """-A mse, -A hist and -A minmax in a process that has run the CLI once
-    already.  Per batch, OCTAV launches once per class of the planner over
-    the tapped tensors (in bf16, the CLI's default statistics dtype), and
-    the histogram once per tapped tensor."""
+    already.  Per batch, each kernel launches once per launch of its planner
+    over the tapped tensors (in bf16, the CLI's default statistics dtype):
+    OCTAV once per size class, the histogram once per 64 tensors."""
     import torch
     from dipoorlet_torch.calib import kernels as K
     batches = -(-N_SAMPLES // BATCH)
     n_tensors = len(tensor_sizes)
-    octav = batches * len(K.octav_plan([(n, torch.bfloat16) for n in tensor_sizes]))
+    sizes = [(n, torch.bfloat16) for n in tensor_sizes]
+    octav = batches * len(K.octav_plan(sizes))
+    hist = batches * len(K.bin_count_plan(sizes, BATCH, BINS))
     expect = {"mse": {"octav": octav, "bin_count": 0},
-              "hist": {"octav": 0, "bin_count": n_tensors * batches},
+              "hist": {"octav": 0, "bin_count": hist},
               "minmax": {"octav": 0, "bin_count": 0}}
     return {algo: run_cli(model_path, data_dir, algo, "warm", n_tensors, want)
             for algo, want in expect.items()}
@@ -411,6 +545,76 @@ def card_vs_cpu(model_path, data_dir):
     emit("card_vs_cpu", samples=BATCH, dtype="float32", **worst)
 
 
+# -- phase 5 ------------------------------------------------------------------
+def merged_ms(intervals, lo, hi):
+    """Milliseconds of [lo, hi] (µs) covered by the union of (start, end) µs."""
+    busy, reach = 0.0, lo
+    for a, b in sorted(intervals):
+        a, b = max(a, reach), min(b, hi)
+        if b > a:
+            busy += b - a
+            reach = b
+    return busy / 1e3
+
+
+def calib_trace(model_path, data_dir):
+    """One warm ``StatsRunner.run_minmax_hist`` pass (the ``-A hist``
+    statistics: bf16 forwards, 100 samples, batch 16) under
+    ``torch.profiler``: the share of the pass's wall span in which a kernel
+    ran (the device is idle for the rest), and the 5 kernels with the most
+    total time.  The same pass's wall time without the profiler comes
+    first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from dipoorlet_torch.calib.stats import StatsRunner
+    from dipoorlet_torch.graph import GraphIR
+    from dipoorlet_torch.runtime import Executor
+    from dipoorlet_torch.runtime.data import CalibDataset
+    ex = Executor(GraphIR.load(model_path))
+    runner = StatsRunner(ex, device="cuda", compute_dtype=torch.bfloat16)
+    params = ex.init_params()
+    dataset = CalibDataset(data_dir, ex.input_shapes(), N_SAMPLES)
+    runner.run_minmax_hist(params, dataset, BINS, batch_size=BATCH)
+    t0 = time.perf_counter()
+    runner.run_minmax_hist(params, dataset, BINS, batch_size=BATCH)  # ends in a host sync
+    wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the tracer may miss launches of its first milliseconds (kernel_device_ms)
+        for _ in range(TIMED_RUNS):
+            torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        with record_function("calib_pass"):
+            runner.run_minmax_hist(params, dataset, BINS, batch_size=BATCH)
+    trace = os.path.join(WORK, "calib_pass_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    (span,) = [e for e in events if e.get("name") == "calib_pass"
+               and e.get("cat") == "user_annotation"]
+    lo, hi = span["ts"], span["ts"] + span["dur"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and lo <= e["ts"] <= hi]
+    copies = [e for e in events if e.get("cat") in ("gpu_memcpy", "gpu_memset")
+              and lo <= e["ts"] <= hi]
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel in the calibration pass")
+    kernel_ms = merged_ms([(e["ts"], e["ts"] + e["dur"]) for e in kernels], lo, hi)
+    copy_ms = merged_ms([(e["ts"], e["ts"] + e["dur"]) for e in copies], lo, hi)
+    by_name = {}
+    for e in kernels:
+        total, count = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (total + e["dur"] / 1e3, count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    emit("calib_trace", pass_="run_minmax_hist", samples=N_SAMPLES, batch=BATCH, bins=BINS,
+         dtype="bfloat16", wall_s=wall_s, traced_span_ms=span["dur"] / 1e3,
+         kernel_busy_ms=kernel_ms, kernel_busy_share=kernel_ms * 1e3 / span["dur"],
+         copy_busy_ms=copy_ms, kernels=len(kernels), copies=len(copies),
+         top_kernels=[dict(name=name[:160], total_ms=total, launches=count)
+                      for name, (total, count) in top],
+         note="wall_s: the same pass without the profiler, host clock; the busy shares are "
+              "of the traced span (the profiler adds host time to it); the idle share is "
+              "1 - kernel_busy_share - the copies' share")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -436,12 +640,14 @@ def main():
          tapped_tensors=len(sizes), elements_per_sample=sum(sizes), samples=N_SAMPLES)
     if len(sizes) != N_TAPPED:
         raise AssertionError(f"ResNet-18 has {len(sizes)} tapped tensors, expected {N_TAPPED}")
-    bin_count, octav_per_tensor_ms = check_kernels(sizes, ops_per_s)
-    kernels = [octav_batch(sizes, ops_per_s, octav_per_tensor_ms), bin_count]
+    per_tensor_ms = check_kernels(sizes, ops_per_s)
+    kernels = [octav_batch(sizes, ops_per_s, per_tensor_ms["octav"]),
+               hist_batch(sizes, ops_per_s, per_tensor_ms["bin_count"])]
     launches = main_path(model_path, data_dir, sizes)
     for k in kernels:
         k["launches"] = launches["mse" if k["name"] == "octav" else "hist"][k["name"]]
     card_vs_cpu(model_path, data_dir)
+    calib_trace(model_path, data_dir)
     emit("done", seconds=time.time() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

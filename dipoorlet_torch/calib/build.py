@@ -34,6 +34,12 @@ class OctavEntry(ctypes.Structure):
                 ("index", ctypes.c_int)]
 
 
+class BinCountEntry(ctypes.Structure):
+    """One tensor of a histogram launch (``Entry`` in csrc/histogram.cu)."""
+    _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p), ("n", ctypes.c_int64),
+                ("first", ctypes.c_int64), ("t", ctypes.c_int)]
+
+
 def find_nvcc() -> str:
     """nvcc on PATH, then in $CUDA_HOME/bin, then in /usr/local/cuda/bin."""
     candidates = [shutil.which("nvcc")]
@@ -99,7 +105,8 @@ def library() -> ctypes.CDLL:
         lib.octav_launch.argtypes = [ctypes.POINTER(OctavEntry), i32, i32, i32, i32, i32, i32,
                                      i32, p, p, i32]
         lib.octav_launch.restype = i32
-        lib.bin_count_launch.argtypes = [p, i32, p, p, i32, i64, i64, i32, p, p, i32]
+        lib.bin_count_launch.argtypes = [ctypes.POINTER(BinCountEntry), i32, i32, i32, i64, i64,
+                                         i64, i32, i32, p, p, p, i32]
         lib.bin_count_launch.restype = i32
         _lib = lib
     return _lib

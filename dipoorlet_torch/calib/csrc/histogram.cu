@@ -1,119 +1,307 @@
-// Fused |x| binning and exact histogram count, on NVIDIA Hopper (sm_90a).
+// Fused |x| binning and exact histogram count, many tensors per launch, on
+// NVIDIA Hopper (sm_90a).
 //
 // Replaces: the JAX package's calib/kernels.py:_hist_kernel (called through
 // histogram_pallas / _histogram_pallas_jit), which counts int32 bucket
 // indices as a digit-split one-hot matmul on the TPU's matrix unit, after
 // the caller has binned |x| and written the indices out
-// (calib/stats.py:435-462 there).
+// (calib/stats.py:435-462 there), and carries the count in VMEM across its
+// sequential grid.
 //
-// What it computes: for every row r of x (B rows of n elements) with
-// valid[r] > 0, and every element v of the row,
-//   bucket = min(max(int_rz(|v| * scales[t]), 0), bins - 1)
-// and adds 1 to out[bucket] (int64, accumulated across calls).  The multiply
-// is one f32 multiply rounded to nearest (__fmul_rn: no FMA contraction, no
-// fast math), and int_rz truncates toward zero, so for every finite v the
-// bucket equals the JAX package's clip(int32(|x|_f32 * scale_f32), 0,
-// bins-1).  Non-finite values follow the same saturating conversion as
-// XLA's: NaN goes to bucket 0, +inf to bucket bins-1.
+// What it computes: for every entry e of the launch's table (a tensor x of
+// `batch` rows of e.n elements), every row r with valid[r] > 0, and every
+// element v of the row,
+//   bucket = min(max(int_rz(|v| * scales[e.t]), 0), bins - 1)
+// and adds 1 to e.out[bucket] (int64, accumulated across calls).  The
+// multiply is one f32 multiply rounded to nearest (__fmul_rn: no FMA
+// contraction, no fast math), and int_rz truncates toward zero, so for every
+// finite v the bucket equals the JAX package's clip(int32(|x|_f32 *
+// scale_f32), 0, bins-1).  Non-finite values follow the same saturating
+// conversion as XLA's: NaN goes to bucket 0, +inf to bucket bins-1.  The
+// scales are read from the device, so the calibration pass needs no host
+// sync between its minmax and histogram phases.
 //
-// What bounds it on the H100: bytes.  The least time is one read of x at
-// 3.35 TB/s; the index tensor the TPU path writes and re-reads is gone.
-// The risk is atomic contention: ReLU outputs put about half of all
-// elements in bucket 0.
+// What bounds it on the H100: bytes.  The least time is one read of the
+// valid rows of x at 3.35 TB/s; the index tensor the TPU path writes and
+// re-reads is gone.  What stands in the way is fixed cost: zeroing and
+// flushing a shared histogram, global atomics, one launch per tensor.
 //
-// What this design does about it: each block privatises a `bins`-sized
-// int32 histogram in dynamic shared memory (8 KB at 2048 bins), so the hot
-// atomics stay on the SM.  Within a warp, lanes that hit the same bucket
-// are merged with __match_any_sync and one lane adds the popcount, so a
-// warp of zeros costs one shared atomic, not 32.  After a barrier, each
-// non-zero bucket goes into `out` with one 64-bit global atomic.  The grid
-// is (ceil(n / (threads * items)), B); a block whose sample is masked
-// returns at once.  The per-tensor scale is read from a device array, so
-// the calibration pass needs no host sync between its minmax and
-// histogram phases.
+// What this design does about it:
+//   * One launch covers up to kMaxEntries tensors of one dtype: a table of
+//     (pointer, out row, n, first element, scale index) entries passed by
+//     value as a __grid_constant__ parameter, so a launch needs no copy and
+//     no allocation.
+//   * The entries' elements form one flat range, entry by entry and row by
+//     row (`first` is where an entry starts in it).  Block b counts elements
+//     [b * per_block, (b + 1) * per_block) of that range: its tiles, a tile
+//     being the part of a run of consecutive valid rows of one entry that
+//     falls in the block's range.  The planner in calib/kernels.py sizes the
+//     grid to the card (SMs x resident blocks), so a block counts hundreds
+//     of thousands of elements at the main path's sizes.
+//   * A block keeps a `bins`-sized int32 histogram in shared memory.  It
+//     zeroes it once, and flushes it into the entry's out row (one 64-bit
+//     global atomic per non-zero bucket, leaving the bucket zero) only when
+//     its range passes to the next entry and at its end: at most
+//     (grid + entries - 1) flushes per launch, never one per few thousand
+//     elements.
+//   * A row with valid <= 0 is skipped before anything of it is read.
+//   * Bucket 0 (about half of a ReLU output) is counted in a register by
+//     each thread and added to the shared histogram once per flush, so the
+//     zeros do not meet at one shared counter.  The other buckets take one
+//     shared atomic per element (kTally: plain atomics, lanes with the same
+//     bucket merged by __match_any_sync first, or one histogram copy per
+//     warp; chip_smoke.py times all three, the main path uses kAtomic).
+//   * The loads are kept in flight, not issued and waited for in turn: a
+//     block reads each run of consecutive valid rows as the 16-byte words
+//     (8 bf16 or 4 f32 values) that cover it, and each thread copies its
+//     words into its own slots of a shared-memory ring with cp.async,
+//     kDepth words ahead of the word it counts, so up to 2 x (kDepth - 1) x
+//     8 KB per SM are on their way and no barrier is needed.  The elements
+//     of a run's first and last word that lie outside it (rows of any
+//     length start at any alignment) are masked; a 16-byte word never
+//     leaves the memory page of the run's own bytes.
+// Offsets are 64-bit.  Shared counts are 32-bit: the planner keeps
+// per_block below 2^31.
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 16;
-constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlocksPerSm = 2;      // BIN_COUNT_BLOCKS_PER_SM in calib/kernels.py
+constexpr int kMaxEntries = 64;      // BIN_COUNT_MAX_ENTRIES
+constexpr int kDepth = 8;            // 16-byte words in flight per thread (a power of 2)
+constexpr int kRingBytes = kDepth * kThreads * 16;  // BIN_COUNT_RING_BYTES
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float load_f32(const float* p, int64_t i) { return p[i]; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
+enum Tally { kAtomic = 0, kMatch = 1, kPerWarp = 2 };  // BIN_COUNT_TALLIES
+
+struct Entry {                  // BinCountEntry in calib/build.py
+  const void* x;                // batch rows of n elements, contiguous
+  unsigned long long* out;      // bins int64 counts, added into
+  int64_t n;
+  int64_t first;                // the entry's first element in the launch's flat range
+  int t;                        // the entry's scale: scales[t]
+};
+
+struct Table {
+  Entry e[kMaxEntries];
+};
+
+// The values of one 16-byte word as f32 (bf16 is the upper half of an f32).
+__device__ __forceinline__ void unpack(uint4 raw, float (&v)[4]) {
+  v[0] = __uint_as_float(raw.x);
+  v[1] = __uint_as_float(raw.y);
+  v[2] = __uint_as_float(raw.z);
+  v[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unpack(uint4 raw, float (&v)[8]) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bin_count_kernel(const T* __restrict__ x, const float* __restrict__ valid,
-                 const float* __restrict__ scales, int t, int64_t n, int bins,
-                 unsigned long long* __restrict__ out) {
-  extern __shared__ int hist[];
-  const int64_t row = blockIdx.y;
-  if (!(valid[row] > 0.f)) return;  // uniform across the block
-  for (int b = threadIdx.x; b < bins; b += kThreads) hist[b] = 0;
-  __syncthreads();
+__device__ __forceinline__ int bucket(float v, float scale, int bins) {
+  return min(max(__float2int_rz(__fmul_rn(fabsf(v), scale)), 0), bins - 1);
+}
 
-  const float scale = scales[t];
-  const T* xr = x + row * n;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * (kThreads * kItems) + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + static_cast<int64_t>(k) * kThreads;
-    int b = -1;  // lanes past the row's end take part in the match only
-    if (i < n) {
-      const float v = __fmul_rn(fabsf(load_f32(xr, i)), scale);
-      b = min(max(__float2int_rz(v), 0), bins - 1);
-    }
-    const unsigned peers = __match_any_sync(0xffffffffu, b);
-    if (b >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[b], __popc(peers));
+// Counts bucket b (b < 0: no element).  Every thread of the block calls it
+// the same number of times, so __match_any_sync sees whole warps.
+template <int kTally>
+__device__ __forceinline__ void tally(int b, int* hist, int& zeros) {
+  zeros += b == 0;
+  if constexpr (kTally == kMatch) {
+    const int key = b > 0 ? b : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    if (key > 0 && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1)
+      atomicAdd(hist + key, __popc(peers));
+  } else {
+    if (b > 0) atomicAdd(hist + b, 1);
   }
+}
+
+// Tallies the `count` elements at src, a run of valid rows of one entry in
+// the block's range.  Thread t takes the run's 16-byte words t, t +
+// kThreads, ...; each is copied from device memory into the thread's own
+// slot of the ring by cp.async, kDepth words ahead of the word the thread
+// counts.  A thread reads only slots it filled itself, after waiting for
+// its own copies, so no barrier is needed, and every copy it issues is
+// waited for before the run ends.  Every loop trip is uniform across the
+// block.
+template <int kTally, typename T>
+__device__ __forceinline__ void run(const T* src, int64_t count, float scale, int bins, int* hist,
+                                    int& zeros, uint4* ring) {
+  constexpr int kVec = 16 / sizeof(T);
+  const uintptr_t begin = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t end = reinterpret_cast<uintptr_t>(src + count);
+  const uintptr_t lo = begin & ~uintptr_t{15};
+  const uintptr_t hi = (end + 15) & ~uintptr_t{15};
+  const int64_t words_n = static_cast<int64_t>((hi - lo) / 16);
+  const int head = static_cast<int>((begin - lo) / sizeof(T));       // word 0's elements before src
+  const int tail = kVec - static_cast<int>((hi - end) / sizeof(T));  // the last word's elements in the run
+  const uint4* words = reinterpret_cast<const uint4*>(lo);
+  uint4* slot = ring + threadIdx.x;
+#pragma unroll
+  for (int s = 0; s < kDepth; ++s) {
+    const int64_t w = static_cast<int64_t>(s) * kThreads + threadIdx.x;
+    if (w < words_n) __pipeline_memcpy_async(slot + s * kThreads, words + w, 16);
+    __pipeline_commit();
+  }
+  const int64_t steps = (words_n + kThreads - 1) / kThreads;
+  for (int64_t i = 0; i < steps; ++i) {
+    const int s = static_cast<int>(i & (kDepth - 1));
+    const int64_t w = i * kThreads + threadIdx.x;
+    __pipeline_wait_prior(kDepth - 1);  // this thread's copy of word w has landed
+    float v[kVec];
+    unpack(slot[s * kThreads], v);
+    const int k0 = w == 0 ? head : 0;
+    const int k1 = w == words_n - 1 ? tail : (w < words_n ? kVec : 0);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+      tally<kTally>(k >= k0 && k < k1 ? bucket(v[k], scale, bins) : -1, hist, zeros);
+    // the slot's value is counted, so the next copy may overwrite it
+    const int64_t next = w + static_cast<int64_t>(kDepth) * kThreads;
+    if (next < words_n) __pipeline_memcpy_async(slot + s * kThreads, words + next, 16);
+    __pipeline_commit();
+  }
+}
+
+// Adds the block's counts (the register-held zeros included) into out and
+// leaves every shared counter zero.  Called by the whole block.
+template <int kCopies>
+__device__ __forceinline__ void flush(int* smem, int bins, int& zeros, unsigned long long* out) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) zeros += __shfl_xor_sync(0xffffffffu, zeros, o);
+  if ((threadIdx.x & 31) == 0 && zeros) atomicAdd(smem, zeros);
+  zeros = 0;
   __syncthreads();
   for (int b = threadIdx.x; b < bins; b += kThreads) {
-    const int c = hist[b];
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < kCopies; ++k) {
+      c += smem[k * bins + b];
+      smem[k * bins + b] = 0;
+    }
     if (c) atomicAdd(out + b, static_cast<unsigned long long>(c));
+  }
+  __syncthreads();
+}
+
+template <typename T, int kTally>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+bin_count_kernel(const __grid_constant__ Table table, int count, int64_t batch, int64_t total,
+                 int64_t per_block, int bins, const float* __restrict__ valid,
+                 const float* __restrict__ scales) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* ring = reinterpret_cast<uint4*>(smem);
+  int* counts = reinterpret_cast<int*>(smem + kRingBytes);
+  constexpr int kCopies = kTally == kPerWarp ? kWarps : 1;
+  int* hist = counts + (kTally == kPerWarp ? static_cast<int>(threadIdx.x >> 5) * bins : 0);
+  for (int i = threadIdx.x; i < kCopies * bins; i += kThreads) counts[i] = 0;
+  __syncthreads();
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t hi = min(lo + per_block, total);
+  int zeros = 0;
+  for (int k = 0; k < count; ++k) {
+    const Entry& e = table.e[k];
+    const int64_t a = max(lo - e.first, int64_t{0});
+    const int64_t z = min(hi - e.first, batch * e.n);
+    if (a >= z) continue;
+    const float scale = scales[e.t];
+    const T* x = static_cast<const T*>(e.x);
+    bool counted = false;
+    for (int64_t row = a / e.n; row * e.n < z;) {
+      if (!(valid[row] > 0.f)) {
+        ++row;
+        continue;
+      }
+      int64_t stop = row + 1;  // the run of valid rows from `row` on
+      while (stop * e.n < z && valid[stop] > 0.f) ++stop;
+      const int64_t c0 = max(a, row * e.n);
+      const int64_t c1 = min(z, stop * e.n);
+      run<kTally>(x + c0, c1 - c0, scale, bins, hist, zeros, ring);
+      counted = true;
+      row = stop;
+    }
+    if (counted) flush<kCopies>(counts, bins, zeros, e.out);
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* valid, const void* scales, int t, long long rows,
-           long long n, int bins, void* out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(bins) * sizeof(int);
-  if (smem > kDefaultSmem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bin_count_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <typename T, int kTally>
+int launch(const Entry* entries, int count, int64_t batch, int64_t total, int64_t per_block,
+           int grid, int bins, const float* valid, const float* scales, cudaStream_t stream,
+           int device) {
+  Table table = {};
+  for (int i = 0; i < count; ++i) table.e[i] = entries[i];
+  const size_t smem =
+      kRingBytes + static_cast<size_t>(kTally == kPerWarp ? kWarps : 1) * bins * sizeof(int);
+  // the shared memory this kernel may have, as granted on each device so far
+  static size_t granted[kMaxDevices] = {};
+  const bool known = device < kMaxDevices && smem <= granted[device];
+  if (!known) {
+    cudaError_t err = cudaFuncSetAttribute(bin_count_kernel<T, kTally>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
     if (err != cudaSuccess) {
       cudaGetLastError();  // clear it, so no later launch check reports it
       return static_cast<int>(err);
     }
+    if (device < kMaxDevices) granted[device] = smem;
   }
-  const long long per_block = static_cast<long long>(kThreads) * kItems;
-  const dim3 grid(static_cast<unsigned>((n + per_block - 1) / per_block),
-                  static_cast<unsigned>(rows));
-  bin_count_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(valid),
-      static_cast<const float*>(scales), t, n, bins, static_cast<unsigned long long*>(out));
+  bin_count_kernel<T, kTally><<<grid, kThreads, smem, stream>>>(table, count, batch, total,
+                                                                per_block, bins, valid, scales);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tally(int tally, const Entry* e, int count, int64_t batch, int64_t total,
+                 int64_t per_block, int grid, int bins, const float* valid, const float* scales,
+                 cudaStream_t s, int d) {
+  if (tally == kAtomic)
+    return launch<T, kAtomic>(e, count, batch, total, per_block, grid, bins, valid, scales, s, d);
+  if (tally == kMatch)
+    return launch<T, kMatch>(e, count, batch, total, per_block, grid, bins, valid, scales, s, d);
+  if (tally == kPerWarp)
+    return launch<T, kPerWarp>(e, count, batch, total, per_block, grid, bins, valid, scales, s, d);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// x: (rows, n) contiguous, dtype 0 = f32, 1 = bf16; valid: (rows,) f32;
-// scales: (T,) f32, read at t; out: (bins,) int64, added into.
-// Launches on `stream` of `device`, allocates nothing, returns cudaGetLastError(),
-// or cudaFuncSetAttribute's error when `bins` ints exceed a block's shared memory.
-extern "C" int bin_count_launch(const void* x, int dtype, const void* valid, const void* scales,
-                                int t, long long rows, long long n, int bins, void* out,
-                                void* stream, int device) {
+// entries: `count` (1..kMaxEntries) tensors of one dtype (0 = f32, 1 = bf16),
+// each (batch, n) contiguous, laid end to end in a flat range of `total`
+// elements; block b of `grid` counts [b * per_block, (b + 1) * per_block).
+// valid: (batch,) f32; scales: f32, read at each entry's t; each entry's
+// out: (bins,) int64, added into.  tally: 0 plain shared atomics, 1
+// __match_any_sync-merged, 2 one histogram copy per warp.
+// Launches on `stream` of `device`, allocates nothing, returns
+// cudaGetLastError(), or cudaFuncSetAttribute's error when the ring and the
+// histogram exceed a block's shared memory.
+extern "C" int bin_count_launch(const void* entries, int count, int dtype, int tally,
+                                long long batch, long long total, long long per_block, int grid,
+                                int bins, const void* valid, const void* scales, void* stream,
+                                int device) {
+  if (count < 1 || count > kMaxEntries || batch < 1 || bins < 1 || grid < 1 || per_block < 1 ||
+      per_block > 0x7fffffffLL || static_cast<long long>(grid) * per_block < total)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const Entry* e = static_cast<const Entry*>(entries);
+  const float* v = static_cast<const float*>(valid);
+  const float* sc = static_cast<const float*>(scales);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, valid, scales, t, rows, n, bins, out, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, valid, scales, t, rows, n, bins, out, s);
+  if (dtype == 0)
+    return launch_tally<float>(tally, e, count, batch, total, per_block, grid, bins, v, sc, s,
+                               device);
+  if (dtype == 1)
+    return launch_tally<__nv_bfloat16>(tally, e, count, batch, total, per_block, grid, bins, v,
+                                       sc, s, device);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,8 +7,11 @@ Pallas kernels (calib/kernels.py of the JAX package):
     MSE-optimal clip with the row's min and max, in one launch per size
     class (``octav_plan``) for a whole list of tensors (csrc/octav.cu);
     ``octav(x, dynamic_sym)`` is the same for one tensor;
-  * ``bin_count(x, valid, scales, t, bins, out)``: the |x| binning fused
-    into an exact histogram count (csrc/histogram.cu).
+  * ``bin_count_many(xs, valid, scales, bins, out)``: the |x| binning
+    fused into an exact histogram count per tensor, in one launch per dtype
+    and 64 tensors (``bin_count_plan``) for a whole list of tensors
+    (csrc/histogram.cu); ``bin_count(x, valid, scales, t, bins, out)`` is the
+    same for one tensor.
 
 Each wrapper dispatches on the tensor's device only: a CPU tensor goes to
 the plain PyTorch version beside it (``octav_reference``,
@@ -18,7 +21,9 @@ wrapper adds one to ``LAUNCHES`` where it launches its kernel, and nowhere
 else."""
 from __future__ import annotations
 
+import ctypes
 import functools
+import struct
 from dataclasses import dataclass
 from typing import Dict, Sequence, Tuple
 
@@ -27,7 +32,10 @@ import torch
 LAUNCHES = {"octav": 0, "bin_count": 0}
 OCTAV_MAX_ITER = 20
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_DEFAULT_SMEM = 48 * 1024  # a block's shared memory without opt-in (kDefaultSmem)
+# Hopper's (sm_90) shared memory, for both planners
+SMEM_PER_BLOCK = 232_448      # the most shared memory one block may have
+SMEM_PER_SM = 233_472         # one SM's shared memory (228 KB)
+SMEM_RESERVED = 1024          # what the runtime reserves for each resident block
 
 
 class KernelLaunchError(RuntimeError):
@@ -66,10 +74,7 @@ def _raise_on(err: int, what: str):
 
 
 # -- OCTAV -------------------------------------------------------------------
-# The shared memory arithmetic of csrc/octav.cu, for Hopper (sm_90).
-SMEM_PER_BLOCK = 232_448      # the most shared memory one block may have
-SMEM_PER_SM = 233_472         # one SM's shared memory (228 KB)
-SMEM_RESERVED = 1024          # what the runtime reserves for each resident block
+# The shared memory arithmetic of csrc/octav.cu.
 OCTAV_STATIC_SMEM = 512       # kStaticSmem: the kernel's static shared memory, at most
 OCTAV_ALIGN = 16              # kAlign: slack that keeps a block's copy 16-byte aligned
 OCTAV_CLUSTERS = (1, 2, 4, 8)  # portable thread-block cluster sizes
@@ -229,40 +234,198 @@ def octav_reference(x: torch.Tensor, dynamic_sym: bool, return_iterations: bool 
 
 
 # -- histogram -------------------------------------------------------------------
-def _check_bin_count(x, valid, scales, t, bins, out):
-    _check_rows(x, "bin_count")
-    _same_device("bin_count", x, valid=valid, scales=scales, out=out)
-    if valid.dtype != torch.float32 or valid.shape != (x.shape[0],):
-        raise ValueError(f"bin_count: valid must be ({x.shape[0]},) float32")
-    if scales.dtype != torch.float32 or scales.ndim != 1 or not 0 <= t < scales.shape[0]:
-        raise ValueError(f"bin_count: scales must be (T,) float32 with 0 <= t < T (t={t})")
-    if bins < 1 or out.dtype != torch.int64 or out.shape != (bins,) or not out.is_contiguous():
-        raise ValueError(f"bin_count: out must be a contiguous ({bins},) int64 tensor")
-    if not (valid.is_contiguous() and scales.is_contiguous()):
-        raise ValueError("bin_count: valid and scales must be contiguous")
+# The launch arithmetic of csrc/histogram.cu.
+BIN_COUNT_THREADS = 512        # kThreads
+BIN_COUNT_WARPS = BIN_COUNT_THREADS // 32
+BIN_COUNT_BLOCKS_PER_SM = 2    # kBlocksPerSm: __launch_bounds__'s minimum resident blocks
+BIN_COUNT_MAX_ENTRIES = 64     # kMaxEntries: tensors in one launch's table
+BIN_COUNT_RING_BYTES = 8 * BIN_COUNT_THREADS * 16  # kRingBytes: kDepth = 8 words per thread
+BIN_COUNT_TALLIES = ("atomic", "match", "per_warp")  # kTally, in the kernel's order
+BIN_COUNT_TALLY = "atomic"     # the main path's: the fastest on the H100 (PERF.md)
+BIN_COUNT_WORK_PER_COUNTER = 16  # a block counts at least 16 elements per shared counter
+HOPPER_SMS = 132               # an H100 SXM's SMs; the wrappers pass the card's own count
+_MAX_PER_BLOCK = 2 ** 31 - 1   # a block's shared counts are int32
+
+
+@dataclass(frozen=True)
+class BinCountLaunch:
+    """One launch of the histogram kernel: the tensors (``entries``, indices
+    into the caller's list) of one dtype laid end to end in a flat range of
+    ``total`` elements (entry j, of ``ns[j]`` elements per row, starting at
+    ``firsts[j]``), counted by ``grid`` blocks of ``per_block`` elements
+    each, with ``smem_bytes`` of shared memory per block (the load ring and
+    the histogram).  ``flushes`` is the number of (block, entry)
+    pairs whose ranges meet: each flushes its shared histogram once, with at
+    most ``bins`` global atomics."""
+    dtype: torch.dtype
+    tally: str
+    entries: Tuple[int, ...]
+    ns: Tuple[int, ...]
+    firsts: Tuple[int, ...]
+    total: int
+    per_block: int
+    grid: int
+    smem_bytes: int
+    flushes: int
+
+
+def bin_count_plan(sizes: Sequence[Tuple[int, torch.dtype]], batch: int, bins: int,
+                   sms: int = HOPPER_SMS, tally: str = BIN_COUNT_TALLY
+                   ) -> Tuple[BinCountLaunch, ...]:
+    """The launches ``bin_count_many`` makes for tensors of these (n, dtype)
+    with ``batch`` rows each, on a card of ``sms`` SMs.
+
+    One launch per dtype and per ``BIN_COUNT_MAX_ENTRIES`` tensors.  The grid
+    is sized to the card: SMs x the blocks that fit on one SM (by threads
+    and shared memory), each block taking an equal run of the flat range,
+    but no fewer than ``BIN_COUNT_WORK_PER_COUNTER`` elements per shared
+    counter, so that zeroing and flushing stay a small share of a block's
+    work.  The cost model: a block flushes once per entry its range meets,
+    so a launch makes ``flushes`` <= grid + entries - 1 flushes and at most
+    ``flushes * bins`` global atomics.  A statistics pass asks for the same
+    sizes every batch, so the plans are cached."""
+    return _bin_count_plan(tuple(sizes), int(batch), int(bins), int(sms), tally)
+
+
+@functools.lru_cache(maxsize=32)
+def _bin_count_plan(sizes: Tuple[Tuple[int, torch.dtype], ...], batch: int, bins: int,
+                    sms: int, tally: str) -> Tuple[BinCountLaunch, ...]:
+    copies = BIN_COUNT_WARPS if tally == "per_warp" else 1
+    smem = BIN_COUNT_RING_BYTES + copies * bins * 4
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"bin_count: {bins} bins need {smem} bytes of shared memory per block "
+                         f"(with the load ring), more than the {SMEM_PER_BLOCK} a block may have")
+    per_sm = min(BIN_COUNT_BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_RESERVED))
+    by_dtype: Dict[torch.dtype, list] = {}
+    for i, (n, dtype) in enumerate(sizes):
+        by_dtype.setdefault(dtype, []).append(i)
+    launches = []
+    for dtype in sorted(by_dtype, key=_DTYPE_CODE.get):
+        members = by_dtype[dtype]
+        for j in range(0, len(members), BIN_COUNT_MAX_ENTRIES):
+            part = tuple(members[j:j + BIN_COUNT_MAX_ENTRIES])
+            firsts, total = [], 0
+            for i in part:
+                firsts.append(total)
+                total += batch * sizes[i][0]
+            per_block = max(-(-total // (sms * per_sm)), BIN_COUNT_WORK_PER_COUNTER * copies * bins)
+            per_block = min(per_block, _MAX_PER_BLOCK)
+            flushes = sum((f + batch * sizes[i][0] - 1) // per_block - f // per_block + 1
+                          for i, f in zip(part, firsts))
+            launches.append(BinCountLaunch(dtype, tally, part, tuple(sizes[i][0] for i in part),
+                                           tuple(firsts), total, per_block,
+                                           -(-total // per_block), smem, flushes))
+    return tuple(launches)
+
+
+def _bin_count_sizes(what: str, xs, valid, scales, bins, out):
+    """Checks the inputs of ``bin_count`` / ``bin_count_many`` and returns
+    each tensor's (n, dtype).  One pass over the tensors, reading each
+    attribute once: the main path checks 50 tensors per batch."""
+    if not xs:
+        raise ValueError(f"{what}: no tensors")
+    device = valid.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {device}")
+    if scales.device != device or out.device != device:
+        raise ValueError(f"{what}: valid is on {device}, scales on {scales.device}, "
+                         f"out on {out.device}")
+    if valid.dtype != torch.float32 or valid.ndim != 1 or not valid.is_contiguous():
+        raise ValueError(f"{what}: valid must be a contiguous (B,) float32 tensor")
+    if scales.dtype != torch.float32 or scales.ndim != 1 or not scales.is_contiguous():
+        raise ValueError(f"{what}: scales must be a contiguous (T,) float32 tensor")
+    if bins < 1 or out.dtype != torch.int64 or not out.is_contiguous():
+        raise ValueError(f"{what}: out must be a contiguous int64 tensor and bins >= 1")
+    batch = valid.shape[0]
+    sizes = []
+    for x in xs:
+        dtype, shape = x.dtype, x.shape
+        if dtype not in _DTYPE_CODE:
+            raise TypeError(f"{what}: x must be float32 or bfloat16, got {dtype}")
+        if len(shape) != 2 or shape[1] < 1 or shape[0] != batch:
+            raise ValueError(f"{what}: x must be (B, n) with n >= 1 and B = {batch} rows of "
+                             f"valid, got {tuple(shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: x must be contiguous")
+        if x.device != device:
+            raise ValueError(f"{what}: x is on {x.device}, valid on {device}")
+        sizes.append((shape[1], dtype))
+    return sizes
+
+
+def bin_count_many(xs: Sequence[torch.Tensor], valid: torch.Tensor, scales: torch.Tensor,
+                   bins: int, out: torch.Tensor) -> torch.Tensor:
+    """Add, for each of T tensors x_i (B, n_i), the histogram of
+    ``min(int(|x_i| * scales[i]), bins - 1)`` over the rows with
+    ``valid > 0`` into ``out[i]`` ((T, bins) int64), in
+    ``len(bin_count_plan(...))`` launches."""
+    xs = list(xs)
+    sizes = _bin_count_sizes("bin_count_many", xs, valid, scales, bins, out)
+    if scales.shape != (len(xs),) or out.shape != (len(xs), bins):
+        raise ValueError(f"bin_count_many: scales must be ({len(xs)},) and out "
+                         f"({len(xs)}, {bins}), got {tuple(scales.shape)} and {tuple(out.shape)}")
+    if valid.device.type == "cpu":
+        for i, x in enumerate(xs):
+            bin_count_reference(x, valid, scales, i, bins, out[i])
+        return out
+    base, row = out.data_ptr(), bins * out.element_size()
+    _bin_count_cuda(sizes, xs, range(len(xs)), range(base, base + len(xs) * row, row), valid,
+                    scales, bins)
+    return out
 
 
 def bin_count(x: torch.Tensor, valid: torch.Tensor, scales: torch.Tensor, t: int,
               bins: int, out: torch.Tensor) -> torch.Tensor:
     """Add the histogram of ``min(int(|x| * scales[t]), bins - 1)`` over the
-    rows of x (B, n) with ``valid > 0`` into ``out`` (bins,) int64."""
-    _check_bin_count(x, valid, scales, t, bins, out)
+    rows of x (B, n) with ``valid > 0`` into ``out`` (bins,) int64: one
+    launch with one entry."""
+    sizes = _bin_count_sizes("bin_count", [x], valid, scales, bins, out)
+    if not 0 <= t < scales.shape[0] or out.shape != (bins,):
+        raise ValueError(f"bin_count: need 0 <= t < {scales.shape[0]} (t={t}) and out "
+                         f"({bins},), got {tuple(out.shape)}")
     if x.device.type == "cpu":
         return bin_count_reference(x, valid, scales, t, bins, out)
-    from .build import library
-    lib = library()
-    if x.shape[0] > 65535:
-        raise ValueError(f"bin_count: at most 65535 rows per launch, got {x.shape[0]}")
-    err = lib.bin_count_launch(x.data_ptr(), _DTYPE_CODE[x.dtype], valid.data_ptr(),
-                               scales.data_ptr(), int(t), x.shape[0], x.shape[1], int(bins),
-                               out.data_ptr(), _stream(x), x.device.index)
-    if err != 0 and 4 * bins > _DEFAULT_SMEM:
-        # beyond 48 KB the kernel asks for more shared memory, which the card refused
-        raise ValueError(f"bin_count: {bins} bins need {4 * bins} bytes of shared memory, "
-                         f"more than a block on this card may have (CUDA error {err})")
-    _raise_on(err, "bin_count")
-    LAUNCHES["bin_count"] += 1
+    _bin_count_cuda(sizes, [x], [t], [out.data_ptr()], valid, scales, bins)
     return out
+
+
+@functools.lru_cache(maxsize=8)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bin_count_cuda(sizes, xs, ts, outs, valid, scales, bins):
+    """Every launch of the plan for xs on the card; entry i counts with
+    scales[ts[i]] into the int64 row at address outs[i]."""
+    plan = bin_count_plan(sizes, valid.shape[0], bins, _sms(valid.device.index))
+    for launch in plan:
+        launch_bin_count(launch, xs, ts, outs, valid, scales, bins)
+
+
+@functools.lru_cache(maxsize=BIN_COUNT_MAX_ENTRIES)
+def _table_format(count: int) -> struct.Struct:
+    """The layout of ``count`` BinCountEntry structures (x, out, n, first, t
+    and 4 bytes of padding), packed in one call."""
+    from .build import BinCountEntry
+    fmt = struct.Struct("<" + "QQqqi4x" * count)
+    assert fmt.size == count * ctypes.sizeof(BinCountEntry)
+    return fmt
+
+
+def launch_bin_count(launch: BinCountLaunch, xs, ts, outs, valid, scales, bins):
+    """One planned launch on the caller's stream (``chip_smoke.py`` also
+    calls it with the plans of the designs the main path does not take)."""
+    from .build import BinCountEntry, library
+    count = len(launch.entries)
+    fields = []
+    for i, n, first in zip(launch.entries, launch.ns, launch.firsts):
+        fields += (xs[i].data_ptr(), outs[i], n, first, ts[i])
+    table = (BinCountEntry * count).from_buffer_copy(_table_format(count).pack(*fields))
+    _raise_on(library().bin_count_launch(
+        table, count, _DTYPE_CODE[launch.dtype], BIN_COUNT_TALLIES.index(launch.tally),
+        valid.shape[0], launch.total, launch.per_block, launch.grid, bins, valid.data_ptr(),
+        scales.data_ptr(), _stream(valid), valid.device.index), "bin_count")
+    LAUNCHES["bin_count"] += 1
 
 
 def bin_count_reference(x: torch.Tensor, valid: torch.Tensor, scales: torch.Tensor,

@@ -6,8 +6,9 @@ interest tapped; the taps leave the forward as (B, *shape) and the
 statistics run on them outside the vmap:
 
   * minmax -> (min, max) per tensor, reduced on the device;
-  * hist   -> a (bins,) int64 |x| histogram per tensor, counted by the
-              ``bin_count`` kernel straight from the activations;
+  * hist   -> a (bins,) int64 |x| histogram per tensor, counted straight
+              from the activations by one ``bin_count_many`` call per batch
+              over all the tapped tensors;
   * octav  -> the OCTAV fixed point per sample and tensor, by one
               ``octav_many`` call per batch over all the tapped tensors.
 
@@ -25,7 +26,7 @@ import torch
 
 from ..device import select_device
 from ..runtime.executor import Executor
-from .kernels import bin_count, octav_many
+from .kernels import bin_count_many, octav_many
 
 _BIG = float(np.finfo(np.float32).max)
 
@@ -147,8 +148,7 @@ class StatsRunner:
                           device=self.device)
         for inputs, valid, _ in self._batches(dataset, batch_size, start, end):
             taps = self._taps(params, inputs)
-            for i, n in enumerate(self.tensor_names):
-                bin_count(taps[n], valid, scales, i, bins, acc[i])
+            bin_count_many([taps[n] for n in self.tensor_names], valid, scales, bins, acc)
         return acc
 
     def _hist_result(self, acc):

@@ -103,6 +103,83 @@ def test_octav_many_runs_in_the_order_of_the_callers_stream(cuda_device):
         assert torch.equal(g[:, 1:], want[:, 1:])
 
 
+# Row lengths that start rows at every alignment (4,099, 3, 7, 1,000), n = 1,
+# and few enough elements beside the large rows that, at 7 or 128 bins, a
+# block's range crosses rows and entries
+HIST_RAGGED = [4099, 3, 1, 512, 1000, 25088, 802816, 7, 9000, 1, 200704]
+
+
+def _bin_count_with(tally, xs, valid, scales, bins, out):
+    """bin_count_many's launches under another tally of the kernel."""
+    plan = K.bin_count_plan([(x.shape[1], x.dtype) for x in xs], xs[0].shape[0], bins,
+                            torch.cuda.get_device_properties(0).multi_processor_count, tally)
+    rows = [out.data_ptr() + i * bins * 8 for i in range(len(xs))]
+    for launch in plan:
+        K.launch_bin_count(launch, xs, list(range(len(xs))), rows, valid, scales, bins)
+    return plan
+
+
+@pytest.mark.parametrize("tally", K.BIN_COUNT_TALLIES)
+@pytest.mark.parametrize("bins", [7, 128, 2048, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bin_count_many_matches_plain_version(cuda_device, dtype, bins, tally):
+    """Bit for bit against bin_count_reference per tensor, with NaN and +-inf
+    values, one masked sample, and a batch with every sample masked."""
+    gen = torch.Generator(device=cuda_device).manual_seed(bins)
+    xs = []
+    for i, n in enumerate(HIST_RAGGED):
+        x = torch.randn(16, n, generator=gen, device=cuda_device) * 3.0
+        x = torch.relu(x) if i % 2 else x
+        x[2, n // 2] = float("nan")
+        x[9, n - 1] = float("inf")
+        x[11, 0] = -float("inf")
+        xs.append(x.to(dtype))
+    scales = torch.rand(len(xs), generator=gen, device=cuda_device) * bins / 4
+    for masked in (list(range(16)), [7]):
+        valid = torch.ones(16, device=cuda_device)
+        valid[masked] = 0
+        out = torch.full((len(xs), bins), 3, dtype=torch.int64, device=cuda_device)
+        if tally == "per_warp" and K.BIN_COUNT_RING_BYTES + 16 * bins * 4 > 232_448:
+            with pytest.raises(ValueError, match=f"{bins} bins"):
+                _bin_count_with(tally, xs, valid, scales, bins, out)
+            return
+        K.reset_launches()
+        plan = _bin_count_with(tally, xs, valid, scales, bins, out)
+        assert K.LAUNCHES["bin_count"] == len(plan) == 1
+        if bins <= 128:  # some block counts parts of several entries
+            assert plan[0].flushes > plan[0].grid
+        for i, x in enumerate(xs):
+            want = K.bin_count_reference(x, valid, scales, i, bins,
+                                         torch.full((bins,), 3, dtype=torch.int64,
+                                                    device=cuda_device))
+            assert torch.equal(out[i], want), (i, x.shape[1])
+            assert int(out[i].sum()) - 3 * bins == (16 - len(masked)) * x.shape[1]
+    if tally == K.BIN_COUNT_TALLY:  # the wrapper takes the same launches
+        out2 = torch.zeros_like(out)
+        K.bin_count_many(xs, valid, scales, bins, out2)
+        assert torch.equal(out2 + 3, out)
+
+
+def test_bin_count_many_runs_in_the_order_of_the_callers_stream(cuda_device):
+    """The launch goes on the caller's stream: it starts after the work
+    already queued there and finishes before the work queued next."""
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        x = torch.relu(torch.randn(16, 802816, device=cuda_device)).to(torch.bfloat16)
+        xs = [x, x[:, :200704].contiguous(), x[:, :1000].contiguous()]
+        valid = torch.ones(16, device=cuda_device)
+        valid[5] = 0
+        scales = torch.full((3,), 400.0, device=cuda_device)
+        out = torch.zeros(3, 2048, dtype=torch.int64, device=cuda_device)
+        K.bin_count_many(xs, valid, scales, 2048, out)
+        got = out.clone()
+    stream.synchronize()
+    for i, t in enumerate(xs):
+        want = K.bin_count_reference(t, valid, scales, i, 2048,
+                                     torch.zeros(2048, dtype=torch.int64, device=cuda_device))
+        assert torch.equal(got[i], want)
+
+
 def test_kernels_raise_instead_of_falling_back(cuda_device):
     x = torch.rand(4, 100, device=cuda_device)
     with pytest.raises(ValueError):  # mixed devices
@@ -164,7 +241,10 @@ def test_statistics_on_the_card_match_the_cpu(workspace):
     batches = 3  # 10 samples in batches of 4
     octav_per_batch = len(K.octav_plan([(math.prod(ex.graph.get_tensor_shape(n)), torch.float32)
                                         for n in card.tensor_names]))
-    assert K.LAUNCHES == {"octav": octav_per_batch * batches, "bin_count": 4 * batches}
+    hist_per_batch = len(K.bin_count_plan([(math.prod(ex.graph.get_tensor_shape(n)),
+                                             torch.float32) for n in card.tensor_names], 4, 256))
+    assert K.LAUNCHES == {"octav": octav_per_batch * batches,
+                          "bin_count": hist_per_batch * batches}
 
 
 def test_cli_runs_on_the_card_by_default(workspace):

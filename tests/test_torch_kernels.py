@@ -230,6 +230,137 @@ def test_bin_count_reference_bf16_and_non_finite_values():
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
+def _ragged_hist_inputs(rng, dtype, b=3):
+    """A ragged list of (b, n) tensors with post-ReLU and signed rows, NaN
+    and +-inf in some rows, one masked row, and one scale per tensor."""
+    xs = []
+    for i, n in enumerate((1, 3, 512, 1000, 4099, 9000)):
+        x = _rows(rng, b, n, relu=bool(i % 2))
+        x[0, rng.randint(n)] = np.nan
+        x[b - 1, rng.randint(n)] = np.inf
+        x[b - 1, rng.randint(n)] = -np.inf
+        xs.append(torch.from_numpy(x).to(dtype))
+    valid = np.ones(b, np.float32)
+    valid[1] = 0.0
+    amax = [np.nanmax(np.where(np.isinf(x.float().numpy()), 0, np.abs(x.float().numpy())))
+            for x in xs]
+    scales = np.array([257 / a if a > 0 else 0.0 for a in amax], np.float32)
+    return xs, torch.from_numpy(valid), torch.from_numpy(scales)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bin_count_many_matches_per_tensor_reference_and_the_jax_package(dtype):
+    """A ragged list in one call: on the CPU each tensor's counts equal
+    ``bin_count_reference`` on that tensor bit for bit, and the JAX
+    package's Pallas histogram (interpret mode) and ``np.bincount`` over the
+    indices XLA's binning gives for the same (f32) values."""
+    from dipoorlet_tpu.calib.kernels import histogram_pallas
+    bins = 300
+    xs, valid, scales = _ragged_hist_inputs(np.random.RandomState(21), dtype)
+    out = torch.full((len(xs), bins), 5, dtype=torch.int64)  # added into
+    got = K.bin_count_many(xs, valid, scales, bins, out)
+    assert got is out
+    for i, x in enumerate(xs):
+        want = K.bin_count_reference(x, valid, scales, i, bins,
+                                     torch.full((bins,), 5, dtype=torch.int64))
+        np.testing.assert_array_equal(got[i].numpy(), want.numpy())
+        v = jnp.asarray(x.float().numpy())
+        idx = np.asarray(jnp.clip((jnp.abs(v) * scales[i].item()).astype(jnp.int32), 0, bins - 1))
+        idx = np.where(valid.numpy()[:, None] > 0, idx, -1).ravel().astype(np.int32)
+        with pltpu.force_tpu_interpret_mode():
+            pallas = np.asarray(histogram_pallas(jnp.asarray(idx), bins))
+        np.testing.assert_array_equal(got[i].numpy() - 5, pallas)
+        np.testing.assert_array_equal(got[i].numpy() - 5,
+                                      np.bincount(idx[idx >= 0], minlength=bins))
+        assert int(got[i].sum()) - 5 * bins == 2 * x.shape[1]  # two valid rows counted
+
+
+def _plan_tiles(launch, sizes, batch):
+    """The tiles each block of a launch counts, as csrc/histogram.cu walks
+    them: (block, entry, row, first element, end) for every part of a row
+    of an entry that falls in the block's range."""
+    tiles = []
+    for block in range(launch.grid):
+        lo = block * launch.per_block
+        hi = min(lo + launch.per_block, launch.total)
+        for i, first in zip(launch.entries, launch.firsts):
+            n = sizes[i][0]
+            a, z = max(lo - first, 0), min(hi - first, batch * n)
+            row = a // n if a < z else batch
+            while row * n < z:
+                tiles.append((block, i, row, max(a, row * n) - row * n,
+                              min(z, (row + 1) * n) - row * n))
+                row += 1
+    return tiles
+
+
+def _random_hist_sizes():
+    rng = np.random.RandomState(8)
+    ns = np.exp(rng.uniform(0, np.log(3e6), 140)).astype(int) + 1
+    return [(int(n), (torch.float32, torch.bfloat16)[rng.randint(2)]) for n in ns]
+
+
+@pytest.mark.parametrize("tally", K.BIN_COUNT_TALLIES)
+@pytest.mark.parametrize("sizes,batch,bins", [
+    (_resnet18_sizes(torch.bfloat16), 16, 2048), (_resnet18_sizes(torch.float32), 16, 2048),
+    (_random_hist_sizes(), 16, 2048), (_random_hist_sizes()[:90], 3, 7),
+    ([(1, torch.float32), (3, torch.bfloat16), (4099, torch.bfloat16)], 1, 8192)],
+    ids=["resnet18-bf16", "resnet18-f32", "random", "random-7-bins", "tiny-8192-bins"])
+def test_bin_count_plan_invariants(sizes, batch, bins, tally):
+    copies = K.BIN_COUNT_WARPS if tally == "per_warp" else 1
+    smem = K.BIN_COUNT_RING_BYTES + copies * bins * 4
+    if smem > 232_448:  # 16 copies of 8192 bins: more than a block may have
+        with pytest.raises(ValueError, match=f"{bins} bins"):
+            K.bin_count_plan(sizes, batch, bins, tally=tally)
+        return
+    plan = K.bin_count_plan(sizes, batch, bins, tally=tally)
+    placed = sorted(i for launch in plan for i in launch.entries)
+    assert placed == list(range(len(sizes)))  # every entry in exactly one launch
+    dtypes = {dtype for _, dtype in sizes}
+    assert len(plan) == sum(-(-sum(d == dtype for _, d in sizes) // K.BIN_COUNT_MAX_ENTRIES)
+                            for dtype in dtypes)
+    for launch in plan:
+        assert 1 <= len(launch.entries) <= K.BIN_COUNT_MAX_ENTRIES
+        assert {sizes[i][1] for i in launch.entries} == {launch.dtype}
+        assert launch.smem_bytes == smem <= 232_448
+        assert launch.total == sum(batch * sizes[i][0] for i in launch.entries)
+        assert 1 <= launch.per_block < 2 ** 31  # the kernel's int32 shared counts
+        assert launch.grid * launch.per_block >= launch.total > (launch.grid - 1) * launch.per_block
+        # every (entry, row, element) in exactly one tile
+        tiles = _plan_tiles(launch, sizes, batch)
+        covered = {}
+        for _, i, row, c0, c1 in tiles:
+            assert 0 <= c0 < c1 <= sizes[i][0]
+            covered.setdefault((i, row), []).append((c0, c1))
+        assert set(covered) == {(i, r) for i in launch.entries for r in range(batch)}
+        for (i, _), parts in covered.items():
+            parts.sort()
+            assert parts[0][0] == 0 and parts[-1][1] == sizes[i][0]
+            assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+        # the cost model: one flush per (block, entry) pair whose ranges meet
+        flushes = len({(block, i) for block, i, *_ in tiles})
+        assert launch.flushes == flushes <= launch.grid + len(launch.entries) - 1
+        # the grid fills the card unless a block would count fewer than 16
+        # elements per shared counter
+        per_sm = min(K.BIN_COUNT_BLOCKS_PER_SM, K.SMEM_PER_SM // (launch.smem_bytes + 1024))
+        assert launch.grid <= K.HOPPER_SMS * per_sm or launch.per_block == 2 ** 31 - 1
+        assert (launch.grid >= K.HOPPER_SMS * per_sm
+                or launch.per_block == K.BIN_COUNT_WORK_PER_COUNTER * copies * bins)
+
+
+def test_bin_count_plan_at_resnet18():
+    """bf16 at 2048 bins: one launch of 264 blocks (2 per SM) for all 50
+    tensors, 313 flushes, so at most 641,024 global atomics per batch.  A
+    block's shared memory holds the 64 KB load ring and 41,728 bins at most."""
+    (launch,) = K.bin_count_plan(_resnet18_sizes(torch.bfloat16), 16, 2048)
+    assert (len(launch.entries), launch.grid, launch.flushes) == (50, 264, 313)
+    assert launch.flushes * 2048 <= 1_000_000
+    assert launch.tally == K.BIN_COUNT_TALLY
+    assert K.bin_count_plan([(10, torch.float32)], 1, 41728)[0].smem_bytes == 232_448
+    with pytest.raises(ValueError, match="41729 bins"):
+        K.bin_count_plan([(10, torch.float32)], 1, 41729)
+
+
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
 def test_wrappers_refuse_unsupported_dtypes(dtype):
     x = torch.ones(2, 8, dtype=dtype)
@@ -239,6 +370,9 @@ def test_wrappers_refuse_unsupported_dtypes(dtype):
         K.octav_many([torch.ones(2, 8), x], False)
     with pytest.raises(TypeError):
         K.bin_count(x, torch.ones(2), torch.ones(1), 0, 4, torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        K.bin_count_many([torch.ones(2, 8), x], torch.ones(2), torch.ones(2), 4,
+                         torch.zeros(2, 4, dtype=torch.int64))
 
 
 def test_wrappers_refuse_bad_shapes_and_layouts():
@@ -262,10 +396,29 @@ def test_wrappers_refuse_bad_shapes_and_layouts():
         K.bin_count(x, torch.ones(4), torch.ones(1), 0, 4, torch.zeros(4))  # out not int64
 
 
+def test_bin_count_many_refuses_bad_shapes():
+    xs = [torch.ones(4, 8), torch.ones(4, 3)]
+    out = torch.zeros(2, 4, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        K.bin_count_many([], torch.ones(4), torch.ones(0), 4, out)
+    with pytest.raises(ValueError):
+        K.bin_count_many([xs[0], torch.ones(3, 3)], torch.ones(4), torch.ones(2), 4, out)  # B
+    with pytest.raises(ValueError):
+        K.bin_count_many(xs, torch.ones(4), torch.ones(3), 4, out)  # one scale per tensor
+    with pytest.raises(ValueError):
+        K.bin_count_many(xs, torch.ones(4), torch.ones(2), 4, torch.zeros(3, 4, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        K.bin_count_many(xs, torch.ones(4), torch.ones(2), 4, torch.zeros(4, 2, dtype=torch.int64).t())
+    with pytest.raises(ValueError):
+        K.bin_count_many([xs[0].t()], torch.ones(8), torch.ones(1), 4, out[:1])  # not contiguous
+
+
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     K.reset_launches()
     x = torch.rand(2, 50)
     K.octav(x, False)
     K.octav_many([x, torch.rand(2, 7).to(torch.bfloat16)], True)
     K.bin_count(x, torch.ones(2), torch.ones(1), 0, 8, torch.zeros(8, dtype=torch.int64))
+    K.bin_count_many([x, x.to(torch.bfloat16)], torch.ones(2), torch.ones(2), 8,
+                     torch.zeros(2, 8, dtype=torch.int64))
     assert K.LAUNCHES == {"octav": 0, "bin_count": 0}

@@ -140,6 +140,25 @@ def test_run_octav_makes_one_octav_many_call_per_batch(setup, monkeypatch, tap_c
     assert len(got) == 50
 
 
+@pytest.mark.parametrize("tap_chunk,calls,most", [(None, 3, 50), (7, 8 * 3, 7)])
+def test_hist_pass_makes_one_bin_count_many_call_per_batch(setup, monkeypatch, tap_chunk, calls,
+                                                           most):
+    """The fused minmax->hist pass counts every tensor of a batch in one call:
+    3 batches of the 50 tensors, or 3 for each of the 8 tap chunks."""
+    from dipoorlet_torch.calib import stats
+    bin_count_many, seen = stats.bin_count_many, []
+
+    def counting(xs, valid, scales, bins, out):
+        assert out.shape == (len(xs), bins) and scales.shape == (len(xs),)
+        seen.append(len(xs))
+        return bin_count_many(xs, valid, scales, bins, out)
+    monkeypatch.setattr(stats, "bin_count_many", counting)
+    runner = StatsRunner(setup["ex"], device="cpu", tap_chunk=tap_chunk)
+    _, hists = runner.run_minmax_hist(setup["params"], setup["ds"], BINS, batch_size=BATCH)
+    assert len(seen) == calls and max(seen) == most and sum(seen) == 50 * 3
+    assert len(hists) == 50
+
+
 def test_bf16_statistics_stay_close_to_f32(setup):
     """bf16 forwards round activations to 8 mantissa bits; the ranges move by
     well under 2% (the JAX package documents <1% on ResNet-18)."""
