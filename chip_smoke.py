@@ -17,7 +17,7 @@ the last line:
      tensors of a batch, as the main path makes them, timed by CUDA events
      around the call and by the kernels' own durations in a
      ``torch.profiler`` trace, with one line per OCTAV size class and one
-     comparing the histogram designs the main path does not take;
+     comparing the histogram's grid with one of 64K-element blocks;
   3. the main path: ``python -m dipoorlet_torch``'s ``main`` on the card for
      ``-A mse``, ``-A hist`` and ``-A minmax`` with ``-D trt`` over 100
      synthetic samples of ResNet-18@224 (1000 classes, seed 0), with the
@@ -317,25 +317,16 @@ def hist_scales(xs, valid):
     return torch.where(amax > 0, BINS / amax, 0.0).float()
 
 
-def flushes(launch, per_block):
-    """(block, entry) pairs whose ranges meet for blocks of per_block elements."""
-    sizes = [(launch.firsts[j + 1] if j + 1 < len(launch.firsts) else launch.total) - f
-             for j, f in enumerate(launch.firsts)]
-    return sum((f + size - 1) // per_block - f // per_block + 1
-               for f, size in zip(launch.firsts, sizes))
-
-
 def hist_batch(tensor_sizes, ops_per_s, per_tensor_ms):
     """One ``bin_count_many`` call over all tapped tensors of a batch, as
     ``_hist_pass`` makes it (bf16, (16, n) post-ReLU rows, one sample
     masked): bit-exact agreement with the plain version per tensor in bf16
     and f32, post-ReLU and signed; the call's CUDA-event time, the kernel's
     device time from a profiler trace, the plain version's, and
-    ``torch.histc`` summed over the tensors.  Then the designs the main path
-    does not take, each checked bit for bit and timed on the same inputs:
-    the other two ways to tally a bucket, and a grid of 64K-element blocks
-    instead of one sized to the card."""
-    import dataclasses
+    ``torch.histc`` summed over the tensors.  Then the grid the main path
+    does not take, 64K-element blocks instead of a grid sized to the card,
+    checked bit for bit and timed beside the main path's on the same
+    inputs."""
     import torch
     from dipoorlet_torch.calib import kernels as K
 
@@ -394,27 +385,24 @@ def hist_batch(tensor_sizes, ops_per_s, per_tensor_ms):
 
     designs = []
     rows = [out.data_ptr() + i * BINS * 8 for i in range(t)]
-    big = 1 << 16
-    variants = [(tally, relu, K.bin_count_plan([(n, torch.bfloat16) for n in tensor_sizes],
-                                               BATCH, BINS, sms, tally)[0])
-                for relu in (True, False) for tally in K.BIN_COUNT_TALLIES]
-    variants.append((K.BIN_COUNT_TALLY, True, dataclasses.replace(
-        launch, per_block=big, grid=-(-launch.total // big), flushes=flushes(launch, big))))
-    for tally, relu, v in variants:
-        vx, vscales, vwant = data[relu]
+    fixed = K.bin_count_plan([(n, torch.bfloat16) for n in tensor_sizes], BATCH, BINS, sms,
+                             per_block=1 << 16)
+    for relu in (True, False):
+        for v in (launch, *fixed):
+            vx, vscales, vwant = data[relu]
 
-        def run():
-            K.launch_bin_count(v, vx, list(range(t)), rows, valid, vscales, BINS)
-        out.zero_()
-        run()
-        err = (out - vwant).abs().max().item()
-        worst = max(worst, err)
-        if err != 0:
-            raise AssertionError(f"bin_count, tally {tally}, grid {v.grid}: {err} max diff")
-        ms, _ = kernel_device_ms(run, 1, "bin_count_kernel")
-        designs.append(dict(tally=tally, data="post-ReLU" if relu else "signed", grid=v.grid,
-                            per_block=v.per_block, smem_bytes=v.smem_bytes, flushes=v.flushes,
-                            device_ms=ms, main_path=v == launch))
+            def run():
+                K.launch_bin_count(v, vx, list(range(t)), rows, valid, vscales, BINS)
+            out.zero_()
+            run()
+            err = (out - vwant).abs().max().item()
+            worst = max(worst, err)
+            if err != 0:
+                raise AssertionError(f"bin_count, grid {v.grid}: {err} max diff")
+            ms, _ = kernel_device_ms(run, 1, "bin_count_kernel")
+            designs.append(dict(data="post-ReLU" if relu else "signed", grid=v.grid,
+                                per_block=v.per_block, smem_bytes=v.smem_bytes,
+                                flushes=v.flushes, device_ms=ms, main_path=v == launch))
     emit("hist_design", designs=designs,
          note="bf16, the 50 tensors of a batch of 16, one sample masked; device_ms as in "
               "kernel_batch; main_path marks the design bin_count_many takes")

@@ -48,18 +48,21 @@
 //   * Bucket 0 (about half of a ReLU output) is counted in a register by
 //     each thread and added to the shared histogram once per flush, so the
 //     zeros do not meet at one shared counter.  The other buckets take one
-//     shared atomic per element (kTally: plain atomics, lanes with the same
-//     bucket merged by __match_any_sync first, or one histogram copy per
-//     warp; chip_smoke.py times all three, the main path uses kAtomic).
+//     shared atomic per element (chip_smoke.py measured merging a warp's
+//     equal buckets with __match_any_sync, and one histogram copy per warp:
+//     both slower, PERF.md).
 //   * The loads are kept in flight, not issued and waited for in turn: a
 //     block reads each run of consecutive valid rows as the 16-byte words
 //     (8 bf16 or 4 f32 values) that cover it, and each thread copies its
 //     words into its own slots of a shared-memory ring with cp.async,
-//     kDepth words ahead of the word it counts, so up to 2 x (kDepth - 1) x
+//     kRingDepth = 8 words ahead of the word it counts, so up to 2 x 7 x
 //     8 KB per SM are on their way and no barrier is needed.  The elements
 //     of a run's first and last word that lie outside it (rows of any
 //     length start at any alignment) are masked; a 16-byte word never
-//     leaves the memory page of the run's own bytes.
+//     leaves the memory page of the run's own bytes.  A histogram too large
+//     to leave room for the ring's 64 KB (more than 41,728 bins, up to the
+//     58,112 a block holds) takes a depth of 0: the same words loaded
+//     straight into registers, one at a time.
 // Offsets are 64-bit.  Shared counts are 32-bit: the planner keeps
 // per_block below 2^31.
 #include <cuda_bf16.h>
@@ -71,14 +74,10 @@
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSm = 2;      // BIN_COUNT_BLOCKS_PER_SM in calib/kernels.py
 constexpr int kMaxEntries = 64;      // BIN_COUNT_MAX_ENTRIES
-constexpr int kDepth = 8;            // 16-byte words in flight per thread (a power of 2)
-constexpr int kRingBytes = kDepth * kThreads * 16;  // BIN_COUNT_RING_BYTES
+constexpr int kRingDepth = 8;        // BIN_COUNT_DEPTH: 16-byte words in flight per thread
 constexpr int kMaxDevices = 64;
-
-enum Tally { kAtomic = 0, kMatch = 1, kPerWarp = 2 };  // BIN_COUNT_TALLIES
 
 struct Entry {                  // BinCountEntry in calib/build.py
   const void* x;                // batch rows of n elements, contiguous
@@ -112,30 +111,21 @@ __device__ __forceinline__ int bucket(float v, float scale, int bins) {
   return min(max(__float2int_rz(__fmul_rn(fabsf(v), scale)), 0), bins - 1);
 }
 
-// Counts bucket b (b < 0: no element).  Every thread of the block calls it
-// the same number of times, so __match_any_sync sees whole warps.
-template <int kTally>
+// Counts bucket b (b < 0: no element).
 __device__ __forceinline__ void tally(int b, int* hist, int& zeros) {
   zeros += b == 0;
-  if constexpr (kTally == kMatch) {
-    const int key = b > 0 ? b : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, key);
-    if (key > 0 && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1)
-      atomicAdd(hist + key, __popc(peers));
-  } else {
-    if (b > 0) atomicAdd(hist + b, 1);
-  }
+  if (b > 0) atomicAdd(hist + b, 1);
 }
 
 // Tallies the `count` elements at src, a run of valid rows of one entry in
 // the block's range.  Thread t takes the run's 16-byte words t, t +
-// kThreads, ...; each is copied from device memory into the thread's own
-// slot of the ring by cp.async, kDepth words ahead of the word the thread
-// counts.  A thread reads only slots it filled itself, after waiting for
-// its own copies, so no barrier is needed, and every copy it issues is
-// waited for before the run ends.  Every loop trip is uniform across the
-// block.
-template <int kTally, typename T>
+// kThreads, ...  With kDepth > 0 (a power of 2) each word is copied from
+// device memory into the thread's own slot of the ring by cp.async, kDepth
+// words ahead of the word the thread counts.  A thread reads only slots it
+// filled itself, after waiting for its own copies, so no barrier is
+// needed, and every copy it issues is waited for before the run ends.
+// Every loop trip is uniform across the block.
+template <int kDepth, typename T>
 __device__ __forceinline__ void run(const T* src, int64_t count, float scale, int bins, int* hist,
                                     int& zeros, uint4* ring) {
   constexpr int kVec = 16 / sizeof(T);
@@ -148,63 +138,71 @@ __device__ __forceinline__ void run(const T* src, int64_t count, float scale, in
   const int tail = kVec - static_cast<int>((hi - end) / sizeof(T));  // the last word's elements in the run
   const uint4* words = reinterpret_cast<const uint4*>(lo);
   uint4* slot = ring + threadIdx.x;
+  if constexpr (kDepth > 0) {
 #pragma unroll
-  for (int s = 0; s < kDepth; ++s) {
-    const int64_t w = static_cast<int64_t>(s) * kThreads + threadIdx.x;
-    if (w < words_n) __pipeline_memcpy_async(slot + s * kThreads, words + w, 16);
-    __pipeline_commit();
+    for (int s = 0; s < kDepth; ++s) {
+      const int64_t w = static_cast<int64_t>(s) * kThreads + threadIdx.x;
+      if (w < words_n) __pipeline_memcpy_async(slot + s * kThreads, words + w, 16);
+      __pipeline_commit();
+    }
   }
   const int64_t steps = (words_n + kThreads - 1) / kThreads;
   for (int64_t i = 0; i < steps; ++i) {
-    const int s = static_cast<int>(i & (kDepth - 1));
     const int64_t w = i * kThreads + threadIdx.x;
-    __pipeline_wait_prior(kDepth - 1);  // this thread's copy of word w has landed
+    uint4 raw = {0u, 0u, 0u, 0u};
+    if constexpr (kDepth > 0) {
+      __pipeline_wait_prior(kDepth - 1);  // this thread's copy of word w has landed
+      raw = slot[static_cast<int>(i & (kDepth - 1)) * kThreads];
+    } else {
+      if (w < words_n) raw = __ldg(words + w);
+    }
     float v[kVec];
-    unpack(slot[s * kThreads], v);
+    unpack(raw, v);
     const int k0 = w == 0 ? head : 0;
     const int k1 = w == words_n - 1 ? tail : (w < words_n ? kVec : 0);
 #pragma unroll
     for (int k = 0; k < kVec; ++k)
-      tally<kTally>(k >= k0 && k < k1 ? bucket(v[k], scale, bins) : -1, hist, zeros);
-    // the slot's value is counted, so the next copy may overwrite it
-    const int64_t next = w + static_cast<int64_t>(kDepth) * kThreads;
-    if (next < words_n) __pipeline_memcpy_async(slot + s * kThreads, words + next, 16);
-    __pipeline_commit();
+      tally(k >= k0 && k < k1 ? bucket(v[k], scale, bins) : -1, hist, zeros);
+    if constexpr (kDepth > 0) {
+      // the slot's value is counted, so the next copy may overwrite it
+      const int64_t next = w + static_cast<int64_t>(kDepth) * kThreads;
+      if (next < words_n)
+        __pipeline_memcpy_async(slot + static_cast<int>(i & (kDepth - 1)) * kThreads,
+                                words + next, 16);
+      __pipeline_commit();
+    }
   }
 }
 
 // Adds the block's counts (the register-held zeros included) into out and
 // leaves every shared counter zero.  Called by the whole block.
-template <int kCopies>
-__device__ __forceinline__ void flush(int* smem, int bins, int& zeros, unsigned long long* out) {
+__device__ __forceinline__ void flush(int* hist, int bins, int& zeros, unsigned long long* out) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) zeros += __shfl_xor_sync(0xffffffffu, zeros, o);
-  if ((threadIdx.x & 31) == 0 && zeros) atomicAdd(smem, zeros);
+  if ((threadIdx.x & 31) == 0 && zeros) atomicAdd(hist, zeros);
   zeros = 0;
   __syncthreads();
   for (int b = threadIdx.x; b < bins; b += kThreads) {
-    int c = 0;
-#pragma unroll
-    for (int k = 0; k < kCopies; ++k) {
-      c += smem[k * bins + b];
-      smem[k * bins + b] = 0;
-    }
+    const int c = hist[b];
+    hist[b] = 0;
     if (c) atomicAdd(out + b, static_cast<unsigned long long>(c));
   }
   __syncthreads();
 }
 
-template <typename T, int kTally>
+// Shared memory: the ring of kDepth words per thread, then the histogram.
+template <int kDepth>
+constexpr int kRingBytes = kDepth * kThreads * 16;
+
+template <typename T, int kDepth>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 bin_count_kernel(const __grid_constant__ Table table, int count, int64_t batch, int64_t total,
                  int64_t per_block, int bins, const float* __restrict__ valid,
                  const float* __restrict__ scales) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint4* ring = reinterpret_cast<uint4*>(smem);
-  int* counts = reinterpret_cast<int*>(smem + kRingBytes);
-  constexpr int kCopies = kTally == kPerWarp ? kWarps : 1;
-  int* hist = counts + (kTally == kPerWarp ? static_cast<int>(threadIdx.x >> 5) * bins : 0);
-  for (int i = threadIdx.x; i < kCopies * bins; i += kThreads) counts[i] = 0;
+  int* hist = reinterpret_cast<int*>(smem + kRingBytes<kDepth>);
+  for (int i = threadIdx.x; i < bins; i += kThreads) hist[i] = 0;
   __syncthreads();
   const int64_t lo = static_cast<int64_t>(blockIdx.x) * per_block;
   const int64_t hi = min(lo + per_block, total);
@@ -226,27 +224,26 @@ bin_count_kernel(const __grid_constant__ Table table, int count, int64_t batch, 
       while (stop * e.n < z && valid[stop] > 0.f) ++stop;
       const int64_t c0 = max(a, row * e.n);
       const int64_t c1 = min(z, stop * e.n);
-      run<kTally>(x + c0, c1 - c0, scale, bins, hist, zeros, ring);
+      run<kDepth>(x + c0, c1 - c0, scale, bins, hist, zeros, ring);
       counted = true;
       row = stop;
     }
-    if (counted) flush<kCopies>(counts, bins, zeros, e.out);
+    if (counted) flush(hist, bins, zeros, e.out);
   }
 }
 
-template <typename T, int kTally>
+template <typename T, int kDepth>
 int launch(const Entry* entries, int count, int64_t batch, int64_t total, int64_t per_block,
            int grid, int bins, const float* valid, const float* scales, cudaStream_t stream,
            int device) {
   Table table = {};
   for (int i = 0; i < count; ++i) table.e[i] = entries[i];
-  const size_t smem =
-      kRingBytes + static_cast<size_t>(kTally == kPerWarp ? kWarps : 1) * bins * sizeof(int);
+  const size_t smem = kRingBytes<kDepth> + static_cast<size_t>(bins) * sizeof(int);
   // the shared memory this kernel may have, as granted on each device so far
   static size_t granted[kMaxDevices] = {};
   const bool known = device < kMaxDevices && smem <= granted[device];
   if (!known) {
-    cudaError_t err = cudaFuncSetAttribute(bin_count_kernel<T, kTally>,
+    cudaError_t err = cudaFuncSetAttribute(bin_count_kernel<T, kDepth>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) {
@@ -255,21 +252,20 @@ int launch(const Entry* entries, int count, int64_t batch, int64_t total, int64_
     }
     if (device < kMaxDevices) granted[device] = smem;
   }
-  bin_count_kernel<T, kTally><<<grid, kThreads, smem, stream>>>(table, count, batch, total,
+  bin_count_kernel<T, kDepth><<<grid, kThreads, smem, stream>>>(table, count, batch, total,
                                                                 per_block, bins, valid, scales);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_tally(int tally, const Entry* e, int count, int64_t batch, int64_t total,
+int launch_depth(int depth, const Entry* e, int count, int64_t batch, int64_t total,
                  int64_t per_block, int grid, int bins, const float* valid, const float* scales,
                  cudaStream_t s, int d) {
-  if (tally == kAtomic)
-    return launch<T, kAtomic>(e, count, batch, total, per_block, grid, bins, valid, scales, s, d);
-  if (tally == kMatch)
-    return launch<T, kMatch>(e, count, batch, total, per_block, grid, bins, valid, scales, s, d);
-  if (tally == kPerWarp)
-    return launch<T, kPerWarp>(e, count, batch, total, per_block, grid, bins, valid, scales, s, d);
+  if (depth == kRingDepth)
+    return launch<T, kRingDepth>(e, count, batch, total, per_block, grid, bins, valid, scales, s,
+                                 d);
+  if (depth == 0)
+    return launch<T, 0>(e, count, batch, total, per_block, grid, bins, valid, scales, s, d);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -279,12 +275,12 @@ int launch_tally(int tally, const Entry* e, int count, int64_t batch, int64_t to
 // each (batch, n) contiguous, laid end to end in a flat range of `total`
 // elements; block b of `grid` counts [b * per_block, (b + 1) * per_block).
 // valid: (batch,) f32; scales: f32, read at each entry's t; each entry's
-// out: (bins,) int64, added into.  tally: 0 plain shared atomics, 1
-// __match_any_sync-merged, 2 one histogram copy per warp.
+// out: (bins,) int64, added into.  depth: the ring's words per thread,
+// kRingDepth, or 0 when the histogram leaves no room for the ring.
 // Launches on `stream` of `device`, allocates nothing, returns
 // cudaGetLastError(), or cudaFuncSetAttribute's error when the ring and the
 // histogram exceed a block's shared memory.
-extern "C" int bin_count_launch(const void* entries, int count, int dtype, int tally,
+extern "C" int bin_count_launch(const void* entries, int count, int dtype, int depth,
                                 long long batch, long long total, long long per_block, int grid,
                                 int bins, const void* valid, const void* scales, void* stream,
                                 int device) {
@@ -298,10 +294,10 @@ extern "C" int bin_count_launch(const void* entries, int count, int dtype, int t
   const float* sc = static_cast<const float*>(scales);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_tally<float>(tally, e, count, batch, total, per_block, grid, bins, v, sc, s,
+    return launch_depth<float>(depth, e, count, batch, total, per_block, grid, bins, v, sc, s,
                                device);
   if (dtype == 1)
-    return launch_tally<__nv_bfloat16>(tally, e, count, batch, total, per_block, grid, bins, v,
+    return launch_depth<__nv_bfloat16>(depth, e, count, batch, total, per_block, grid, bins, v,
                                        sc, s, device);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,7 +25,7 @@ import ctypes
 import functools
 import struct
 from dataclasses import dataclass
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -236,12 +236,10 @@ def octav_reference(x: torch.Tensor, dynamic_sym: bool, return_iterations: bool 
 # -- histogram -------------------------------------------------------------------
 # The launch arithmetic of csrc/histogram.cu.
 BIN_COUNT_THREADS = 512        # kThreads
-BIN_COUNT_WARPS = BIN_COUNT_THREADS // 32
 BIN_COUNT_BLOCKS_PER_SM = 2    # kBlocksPerSm: __launch_bounds__'s minimum resident blocks
 BIN_COUNT_MAX_ENTRIES = 64     # kMaxEntries: tensors in one launch's table
-BIN_COUNT_RING_BYTES = 8 * BIN_COUNT_THREADS * 16  # kRingBytes: kDepth = 8 words per thread
-BIN_COUNT_TALLIES = ("atomic", "match", "per_warp")  # kTally, in the kernel's order
-BIN_COUNT_TALLY = "atomic"     # the main path's: the fastest on the H100 (PERF.md)
+BIN_COUNT_DEPTH = 8            # kRingDepth: 16-byte words per thread in the load ring
+BIN_COUNT_RING_BYTES = BIN_COUNT_DEPTH * BIN_COUNT_THREADS * 16
 BIN_COUNT_WORK_PER_COUNTER = 16  # a block counts at least 16 elements per shared counter
 HOPPER_SMS = 132               # an H100 SXM's SMs; the wrappers pass the card's own count
 _MAX_PER_BLOCK = 2 ** 31 - 1   # a block's shared counts are int32
@@ -253,12 +251,12 @@ class BinCountLaunch:
     into the caller's list) of one dtype laid end to end in a flat range of
     ``total`` elements (entry j, of ``ns[j]`` elements per row, starting at
     ``firsts[j]``), counted by ``grid`` blocks of ``per_block`` elements
-    each, with ``smem_bytes`` of shared memory per block (the load ring and
-    the histogram).  ``flushes`` is the number of (block, entry)
-    pairs whose ranges meet: each flushes its shared histogram once, with at
-    most ``bins`` global atomics."""
+    each, with ``smem_bytes`` of shared memory per block (the load ring of
+    ``depth`` words per thread and the histogram).  ``flushes`` is the
+    number of (block, entry) pairs whose ranges meet: each flushes its
+    shared histogram once, with at most ``bins`` global atomics."""
     dtype: torch.dtype
-    tally: str
+    depth: int
     entries: Tuple[int, ...]
     ns: Tuple[int, ...]
     firsts: Tuple[int, ...]
@@ -270,7 +268,7 @@ class BinCountLaunch:
 
 
 def bin_count_plan(sizes: Sequence[Tuple[int, torch.dtype]], batch: int, bins: int,
-                   sms: int = HOPPER_SMS, tally: str = BIN_COUNT_TALLY
+                   sms: int = HOPPER_SMS, per_block: Optional[int] = None
                    ) -> Tuple[BinCountLaunch, ...]:
     """The launches ``bin_count_many`` makes for tensors of these (n, dtype)
     with ``batch`` rows each, on a card of ``sms`` SMs.
@@ -282,19 +280,23 @@ def bin_count_plan(sizes: Sequence[Tuple[int, torch.dtype]], batch: int, bins: i
     counter, so that zeroing and flushing stay a small share of a block's
     work.  The cost model: a block flushes once per entry its range meets,
     so a launch makes ``flushes`` <= grid + entries - 1 flushes and at most
-    ``flushes * bins`` global atomics.  A statistics pass asks for the same
-    sizes every batch, so the plans are cached."""
-    return _bin_count_plan(tuple(sizes), int(batch), int(bins), int(sms), tally)
+    ``flushes * bins`` global atomics.  A block keeps the load ring beside
+    the histogram where both fit its shared memory, else it loads without
+    one (``depth`` 0).  ``per_block`` fixes a block's elements instead of
+    sizing the grid to the card (``chip_smoke.py`` times such a grid).  A
+    statistics pass asks for the same sizes every batch, so the plans are
+    cached."""
+    return _bin_count_plan(tuple(sizes), int(batch), int(bins), int(sms), per_block)
 
 
 @functools.lru_cache(maxsize=32)
 def _bin_count_plan(sizes: Tuple[Tuple[int, torch.dtype], ...], batch: int, bins: int,
-                    sms: int, tally: str) -> Tuple[BinCountLaunch, ...]:
-    copies = BIN_COUNT_WARPS if tally == "per_warp" else 1
-    smem = BIN_COUNT_RING_BYTES + copies * bins * 4
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"bin_count: {bins} bins need {smem} bytes of shared memory per block "
-                         f"(with the load ring), more than the {SMEM_PER_BLOCK} a block may have")
+                    sms: int, fixed_per_block: Optional[int]) -> Tuple[BinCountLaunch, ...]:
+    if bins * 4 > SMEM_PER_BLOCK:
+        raise ValueError(f"bin_count: {bins} bins need {bins * 4} bytes of shared memory per "
+                         f"block, more than the {SMEM_PER_BLOCK} a block may have")
+    depth = BIN_COUNT_DEPTH if BIN_COUNT_RING_BYTES + bins * 4 <= SMEM_PER_BLOCK else 0
+    smem = depth * BIN_COUNT_THREADS * 16 + bins * 4
     per_sm = min(BIN_COUNT_BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_RESERVED))
     by_dtype: Dict[torch.dtype, list] = {}
     for i, (n, dtype) in enumerate(sizes):
@@ -308,11 +310,12 @@ def _bin_count_plan(sizes: Tuple[Tuple[int, torch.dtype], ...], batch: int, bins
             for i in part:
                 firsts.append(total)
                 total += batch * sizes[i][0]
-            per_block = max(-(-total // (sms * per_sm)), BIN_COUNT_WORK_PER_COUNTER * copies * bins)
+            per_block = fixed_per_block or max(-(-total // (sms * per_sm)),
+                                               BIN_COUNT_WORK_PER_COUNTER * bins)
             per_block = min(per_block, _MAX_PER_BLOCK)
             flushes = sum((f + batch * sizes[i][0] - 1) // per_block - f // per_block + 1
                           for i, f in zip(part, firsts))
-            launches.append(BinCountLaunch(dtype, tally, part, tuple(sizes[i][0] for i in part),
+            launches.append(BinCountLaunch(dtype, depth, part, tuple(sizes[i][0] for i in part),
                                            tuple(firsts), total, per_block,
                                            -(-total // per_block), smem, flushes))
     return tuple(launches)
@@ -414,7 +417,7 @@ def _table_format(count: int) -> struct.Struct:
 
 def launch_bin_count(launch: BinCountLaunch, xs, ts, outs, valid, scales, bins):
     """One planned launch on the caller's stream (``chip_smoke.py`` also
-    calls it with the plans of the designs the main path does not take)."""
+    calls it with a plan of another grid)."""
     from .build import BinCountEntry, library
     count = len(launch.entries)
     fields = []
@@ -422,7 +425,7 @@ def launch_bin_count(launch: BinCountLaunch, xs, ts, outs, valid, scales, bins):
         fields += (xs[i].data_ptr(), outs[i], n, first, ts[i])
     table = (BinCountEntry * count).from_buffer_copy(_table_format(count).pack(*fields))
     _raise_on(library().bin_count_launch(
-        table, count, _DTYPE_CODE[launch.dtype], BIN_COUNT_TALLIES.index(launch.tally),
+        table, count, _DTYPE_CODE[launch.dtype], launch.depth,
         valid.shape[0], launch.total, launch.per_block, launch.grid, bins, valid.data_ptr(),
         scales.data_ptr(), _stream(valid), valid.device.index), "bin_count")
     LAUNCHES["bin_count"] += 1

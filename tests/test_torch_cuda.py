@@ -109,20 +109,11 @@ def test_octav_many_runs_in_the_order_of_the_callers_stream(cuda_device):
 HIST_RAGGED = [4099, 3, 1, 512, 1000, 25088, 802816, 7, 9000, 1, 200704]
 
 
-def _bin_count_with(tally, xs, valid, scales, bins, out):
-    """bin_count_many's launches under another tally of the kernel."""
-    plan = K.bin_count_plan([(x.shape[1], x.dtype) for x in xs], xs[0].shape[0], bins,
-                            torch.cuda.get_device_properties(0).multi_processor_count, tally)
-    rows = [out.data_ptr() + i * bins * 8 for i in range(len(xs))]
-    for launch in plan:
-        K.launch_bin_count(launch, xs, list(range(len(xs))), rows, valid, scales, bins)
-    return plan
-
-
-@pytest.mark.parametrize("tally", K.BIN_COUNT_TALLIES)
-@pytest.mark.parametrize("bins", [7, 128, 2048, 8192])
+# 41,729 and 58,112 bins leave no room for the load ring: the kernel loads
+# without it
+@pytest.mark.parametrize("bins", [7, 128, 2048, 8192, 41729, 58112])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bin_count_many_matches_plain_version(cuda_device, dtype, bins, tally):
+def test_bin_count_many_matches_plain_version(cuda_device, dtype, bins):
     """Bit for bit against bin_count_reference per tensor, with NaN and +-inf
     values, one masked sample, and a batch with every sample masked."""
     gen = torch.Generator(device=cuda_device).manual_seed(bins)
@@ -135,29 +126,24 @@ def test_bin_count_many_matches_plain_version(cuda_device, dtype, bins, tally):
         x[11, 0] = -float("inf")
         xs.append(x.to(dtype))
     scales = torch.rand(len(xs), generator=gen, device=cuda_device) * bins / 4
+    plan = K.bin_count_plan([(x.shape[1], x.dtype) for x in xs], 16, bins,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan[0].depth == (K.BIN_COUNT_DEPTH if bins <= 41728 else 0)
+    if bins <= 128:  # some block counts parts of several entries
+        assert plan[0].flushes > plan[0].grid
     for masked in (list(range(16)), [7]):
         valid = torch.ones(16, device=cuda_device)
         valid[masked] = 0
         out = torch.full((len(xs), bins), 3, dtype=torch.int64, device=cuda_device)
-        if tally == "per_warp" and K.BIN_COUNT_RING_BYTES + 16 * bins * 4 > 232_448:
-            with pytest.raises(ValueError, match=f"{bins} bins"):
-                _bin_count_with(tally, xs, valid, scales, bins, out)
-            return
         K.reset_launches()
-        plan = _bin_count_with(tally, xs, valid, scales, bins, out)
+        K.bin_count_many(xs, valid, scales, bins, out)
         assert K.LAUNCHES["bin_count"] == len(plan) == 1
-        if bins <= 128:  # some block counts parts of several entries
-            assert plan[0].flushes > plan[0].grid
         for i, x in enumerate(xs):
             want = K.bin_count_reference(x, valid, scales, i, bins,
                                          torch.full((bins,), 3, dtype=torch.int64,
                                                     device=cuda_device))
             assert torch.equal(out[i], want), (i, x.shape[1])
             assert int(out[i].sum()) - 3 * bins == (16 - len(masked)) * x.shape[1]
-    if tally == K.BIN_COUNT_TALLY:  # the wrapper takes the same launches
-        out2 = torch.zeros_like(out)
-        K.bin_count_many(xs, valid, scales, bins, out2)
-        assert torch.equal(out2 + 3, out)
 
 
 def test_bin_count_many_runs_in_the_order_of_the_callers_stream(cuda_device):
@@ -185,9 +171,9 @@ def test_kernels_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):  # mixed devices
         K.bin_count(x, torch.ones(4), torch.ones(1, device=cuda_device), 0, 8,
                     torch.zeros(8, dtype=torch.int64, device=cuda_device))
-    with pytest.raises(ValueError):  # more bins than a block's shared memory holds
+    with pytest.raises(ValueError, match="58113 bins"):  # more than a block's shared memory
         K.bin_count(x, torch.ones(4, device=cuda_device), torch.ones(1, device=cuda_device), 0,
-                    1 << 20, torch.zeros(1 << 20, dtype=torch.int64, device=cuda_device))
+                    58113, torch.zeros(58113, dtype=torch.int64, device=cuda_device))
 
 
 def _two_conv_model(path):

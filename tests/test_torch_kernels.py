@@ -300,29 +300,28 @@ def _random_hist_sizes():
     return [(int(n), (torch.float32, torch.bfloat16)[rng.randint(2)]) for n in ns]
 
 
-@pytest.mark.parametrize("tally", K.BIN_COUNT_TALLIES)
+@pytest.mark.parametrize("sms", [132, 114, 8])  # H100 SXM, H100 PCIe, a small card
 @pytest.mark.parametrize("sizes,batch,bins", [
     (_resnet18_sizes(torch.bfloat16), 16, 2048), (_resnet18_sizes(torch.float32), 16, 2048),
     (_random_hist_sizes(), 16, 2048), (_random_hist_sizes()[:90], 3, 7),
-    ([(1, torch.float32), (3, torch.bfloat16), (4099, torch.bfloat16)], 1, 8192)],
-    ids=["resnet18-bf16", "resnet18-f32", "random", "random-7-bins", "tiny-8192-bins"])
-def test_bin_count_plan_invariants(sizes, batch, bins, tally):
-    copies = K.BIN_COUNT_WARPS if tally == "per_warp" else 1
-    smem = K.BIN_COUNT_RING_BYTES + copies * bins * 4
-    if smem > 232_448:  # 16 copies of 8192 bins: more than a block may have
-        with pytest.raises(ValueError, match=f"{bins} bins"):
-            K.bin_count_plan(sizes, batch, bins, tally=tally)
-        return
-    plan = K.bin_count_plan(sizes, batch, bins, tally=tally)
+    ([(1, torch.float32), (3, torch.bfloat16), (4099, torch.bfloat16)], 1, 8192),
+    (_random_hist_sizes()[:20], 2, 58112)],
+    ids=["resnet18-bf16", "resnet18-f32", "random", "random-7-bins", "tiny-8192-bins",
+         "random-58112-bins"])
+def test_bin_count_plan_invariants(sizes, batch, bins, sms):
+    plan = K.bin_count_plan(sizes, batch, bins, sms)
     placed = sorted(i for launch in plan for i in launch.entries)
     assert placed == list(range(len(sizes)))  # every entry in exactly one launch
     dtypes = {dtype for _, dtype in sizes}
     assert len(plan) == sum(-(-sum(d == dtype for _, d in sizes) // K.BIN_COUNT_MAX_ENTRIES)
                             for dtype in dtypes)
+    # the load ring where it fits beside the histogram
+    depth = K.BIN_COUNT_DEPTH if K.BIN_COUNT_RING_BYTES + bins * 4 <= 232_448 else 0
     for launch in plan:
         assert 1 <= len(launch.entries) <= K.BIN_COUNT_MAX_ENTRIES
         assert {sizes[i][1] for i in launch.entries} == {launch.dtype}
-        assert launch.smem_bytes == smem <= 232_448
+        assert launch.depth == depth
+        assert launch.smem_bytes == depth * K.BIN_COUNT_THREADS * 16 + bins * 4 <= 232_448
         assert launch.total == sum(batch * sizes[i][0] for i in launch.entries)
         assert 1 <= launch.per_block < 2 ** 31  # the kernel's int32 shared counts
         assert launch.grid * launch.per_block >= launch.total > (launch.grid - 1) * launch.per_block
@@ -343,22 +342,33 @@ def test_bin_count_plan_invariants(sizes, batch, bins, tally):
         # the grid fills the card unless a block would count fewer than 16
         # elements per shared counter
         per_sm = min(K.BIN_COUNT_BLOCKS_PER_SM, K.SMEM_PER_SM // (launch.smem_bytes + 1024))
-        assert launch.grid <= K.HOPPER_SMS * per_sm or launch.per_block == 2 ** 31 - 1
-        assert (launch.grid >= K.HOPPER_SMS * per_sm
-                or launch.per_block == K.BIN_COUNT_WORK_PER_COUNTER * copies * bins)
+        assert launch.grid <= sms * per_sm or launch.per_block == 2 ** 31 - 1
+        assert (launch.grid >= sms * per_sm
+                or launch.per_block == K.BIN_COUNT_WORK_PER_COUNTER * bins)
 
 
 def test_bin_count_plan_at_resnet18():
     """bf16 at 2048 bins: one launch of 264 blocks (2 per SM) for all 50
     tensors, 313 flushes, so at most 641,024 global atomics per batch.  A
-    block's shared memory holds the 64 KB load ring and 41,728 bins at most."""
-    (launch,) = K.bin_count_plan(_resnet18_sizes(torch.bfloat16), 16, 2048)
+    grid of 64K-element blocks takes 1,440 blocks and, with the tensors in
+    this order, 1,472 flushes.  A
+    block's shared memory holds the 64 KB load ring and up to 41,728 bins,
+    and without the ring up to 58,112."""
+    sizes = _resnet18_sizes(torch.bfloat16)
+    (launch,) = K.bin_count_plan(sizes, 16, 2048)
     assert (len(launch.entries), launch.grid, launch.flushes) == (50, 264, 313)
     assert launch.flushes * 2048 <= 1_000_000
-    assert launch.tally == K.BIN_COUNT_TALLY
-    assert K.bin_count_plan([(10, torch.float32)], 1, 41728)[0].smem_bytes == 232_448
-    with pytest.raises(ValueError, match="41729 bins"):
-        K.bin_count_plan([(10, torch.float32)], 1, 41729)
+    assert launch.depth == K.BIN_COUNT_DEPTH
+    (fixed,) = K.bin_count_plan(sizes, 16, 2048, per_block=1 << 16)
+    assert (fixed.per_block, fixed.grid, fixed.flushes) == (1 << 16, 1440, 1472)
+    assert fixed.flushes == len({(block, i) for block, i, *_ in _plan_tiles(fixed, sizes, 16)})
+    ring = K.bin_count_plan([(10, torch.float32)], 1, 41728)[0]
+    assert (ring.depth, ring.smem_bytes) == (K.BIN_COUNT_DEPTH, 232_448)
+    no_ring = K.bin_count_plan([(10, torch.float32)], 1, 41729)[0]
+    assert (no_ring.depth, no_ring.smem_bytes) == (0, 41729 * 4)
+    assert K.bin_count_plan([(10, torch.float32)], 1, 58112)[0].smem_bytes == 232_448
+    with pytest.raises(ValueError, match="58113 bins"):
+        K.bin_count_plan([(10, torch.float32)], 1, 58113)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
